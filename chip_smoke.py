@@ -13,12 +13,18 @@ script exits non-zero:
 3. load    — the trained HOPV prop-opt model and vocab through the bridge,
              and the first 64 in-vocab molecules of ``data/hopv15.csv``.
 4. kernel  — each kernel against its plain PyTorch version on the card, at
-             the shapes the serve path gives it (the 64 molecules' tables)
-             and at ragged and large cases.  ``ms``, ``plain_ms`` and
-             ``library_ms`` are device times (calls captured in a CUDA
-             graph, replayed between CUDA events); ``host_ms`` is the
-             eager back-to-back time, which the host's dispatch sets at
-             small shapes.
+             the shapes the serve path gives it (the 64 molecules' tables),
+             at that tree tiled 64 times (a 4,096-molecule request), over
+             the neighbour widths A = 1..8 at the serve width, and at
+             ragged and large cases (``kernel_bench.measure_cases``).
+             ``ms``, ``plain_ms`` and ``library_ms`` are device times
+             (calls captured in a CUDA graph, replayed between CUDA
+             events); ``floor_ms`` is a one-element launch in the same
+             harness; ``bound_ms`` counts the distinct rows the case
+             reads; ``host_ms`` is the eager back-to-back time, which the
+             host's dispatch sets at small shapes.  ``kinds`` forces each
+             launch kind of the kernel on the same inputs, each checked
+             and timed; ``plan`` is the launch the wrapper chose.
 5. serve   — ``GgpmServer`` on a free port answers ``/health``, ``/encode``
              and ``/properties`` for the 64 molecules; checks the latents,
              the kernel launch counts, the HOMO/LUMO MAE against the JAX
@@ -31,9 +37,9 @@ object listing every kernel; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 import urllib.request
@@ -41,13 +47,17 @@ import urllib.request
 import numpy as np
 import torch
 
+from ggpm_tpu_torch import kernel_bench
 from ggpm_tpu_torch.bridge import load_model
 from ggpm_tpu_torch.data.batching import to_model_batch
 from ggpm_tpu_torch.data.dataset import prune_to_vocab, read_csv_data
 from ggpm_tpu_torch.graph.mol_graph import tensorize
 from ggpm_tpu_torch.graph.vocab import common_atom_vocab
+from ggpm_tpu_torch.kernel_bench import (device_ms, eager_ms, floor_ms,
+                                         nvidia_smi)
 from ggpm_tpu_torch.models.api import encode
 from ggpm_tpu_torch.ops import cuda_build, graph_ops, nei_sum
+from ggpm_tpu_torch.ops.nei_sum import KINDS, device_plan, launch
 from ggpm_tpu_torch.serve import GgpmServer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -69,21 +79,30 @@ LATENT_ATOL = 1e-4
 # ulps of the sum
 KERNEL_ATOL = 1e-5
 
-# H100 SXM data sheet: HBM rate and fp32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 
-# every kernel of the serve path: wrapper, plain version, the one PyTorch
-# call that computes the same function (timed as a yardstick only)
+def nei_sum_kinds(h, g):
+    """Each launch kind of ``nei_sum`` forced on (h, g): its plan, max abs
+    error against the plain version, and device ms; and the plan the
+    wrapper chooses."""
+    ref = graph_ops.nei_sum(h, g)
+    out = torch.empty((g.shape[0], h.shape[1]), device=h.device)
+    kinds = {}
+    for kind in KINDS:
+        p = device_plan(h, g, out, kind)
+        err = (launch(h, g, out, p) - ref).abs().max().item()
+        kinds[kind] = dict(ms=device_ms(lambda p=p: launch(h, g, out, p)),
+                           max_abs_err=err, plan=dataclasses.asdict(p))
+    return dataclasses.asdict(device_plan(h, g, out)), kinds
+
+
+# every kernel of the serve path: its wrapper, its cases (each timed with
+# the wrapper, the plain version and the one PyTorch call that computes the
+# same function, a yardstick only) and its launch kinds
 KERNELS = {
     'nei_sum': dict(
         route='cuda', source='ggpm_tpu_torch/csrc/nei_sum.cu',
-        replaces='ggpm_tpu/ops/pallas_gather.py:33',
-        wrapper=nei_sum, plain=graph_ops.nei_sum,
-        library=lambda h, g: torch.index_select(h, 0, g.view(-1)).view(
-            g.shape[0], g.shape[1], h.shape[1]).sum(1),
-        bytes=lambda h, g: 4 * (h.numel() + g.numel() + g.shape[0] * h.shape[1]),
-        ops=lambda h, g: g.numel() * h.shape[1]),
+        replaces='ggpm_tpu/ops/pallas_gather.py:33', wrapper=nei_sum,
+        cases=kernel_bench.measure_cases, kinds=nei_sum_kinds),
 }
 
 
@@ -91,109 +110,20 @@ def phase(name, t0):
     print(f'phase {name} ok {time.perf_counter() - t0:.3f}s', flush=True)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def eager_ms(fn, reps: int = 20, inner: int = 50) -> float:
-    """Per-call time of ``inner`` back-to-back eager calls, median over
-    ``reps``, from CUDA events: at small shapes the host's dispatch sets
-    this pace, as it does on the serve path."""
-    for _ in range(5):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return float(np.median(times))
-
-
-def device_ms(fn, reps: int = 20, inner: int = 20) -> float:
-    """Per-call device time: ``inner`` calls captured in a CUDA graph and
-    replayed, median over ``reps``, from CUDA events; no host dispatch in
-    the timed region."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    del graph
-    return float(np.median(times))
-
-
-def random_table(gen, m, hdim):
-    h = torch.rand((m, hdim), generator=gen, device='cuda') * 2 - 1
-    h[0] = 0
-    return h
-
-
-def kernel_cases(tree, gen):
-    """(name, h, graph) at the serve path's shapes, then edge cases."""
-    n_mess = tree['fmess'].shape[0]
-    agraph = torch.as_tensor(tree['agraph'], device='cuda')
-    roots = torch.as_tensor(tree['scope'][:, 0], device='cuda').long()
-    h = random_table(gen, n_mess, 250)
-    cases = [('readout', h, agraph),
-             ('root', h, agraph[roots].contiguous())]
-    for name, m, hdim, n, a in (('ragged-A1-H251', 1001, 251, 37, 1),
-                                ('float4-H256', 4097, 256, 1001, 3),
-                                ('large', 32768, 256, 65536, 6)):
-        cases.append((name, random_table(gen, m, hdim), torch.randint(
-            0, m, (n, a), generator=gen, device='cuda', dtype=torch.int32)))
-    return cases
-
-
 def check_kernels(tree):
-    gen = torch.Generator(device='cuda').manual_seed(0)
+    floor = floor_ms()
+    print(f'floor_ms {floor}', flush=True)
     report = {}
     for kname, k in KERNELS.items():
-        for case, h, g in kernel_cases(tree, gen):
-            out = k['wrapper'](h, g)
-            ref = k['plain'](h, g)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            lib_err = (k['library'](h, g) - ref).abs().max().item()
-            if not err <= KERNEL_ATOL:
-                raise AssertionError(f'{kname}/{case}: max abs err {err}')
-            ms, plain_ms, library_ms = (
-                device_ms(lambda f=f: f(h, g))
-                for f in (k['wrapper'], k['plain'], k['library']))
-            host_ms, plain_host_ms = (
+        for case, h, g, row in k['cases'](tree, floor, k['wrapper']):
+            row['plan'], row['kinds'] = k['kinds'](h, g)
+            errs = [row['max_abs_err']] + [
+                r['max_abs_err'] for r in row['kinds'].values()]
+            if not max(errs) <= KERNEL_ATOL:
+                raise AssertionError(f'{kname}/{case}: max abs err {errs}')
+            row['host_ms'], row['plain_host_ms'] = (
                 eager_ms(lambda f=f: f(h, g))
-                for f in (k['wrapper'], k['plain']))
-            bound_by, bound_ms = max(
-                ('bytes', 1e3 * k['bytes'](h, g) / HBM_BYTES_PER_S),
-                ('operations', 1e3 * k['ops'](h, g) / FP32_OPS_PER_S),
-                key=lambda x: x[1])
-            row = dict(h=list(h.shape), graph=list(g.shape), max_abs_err=err,
-                       library_max_abs_err=lib_err, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, host_ms=host_ms,
-                       plain_host_ms=plain_host_ms)
+                for f in (k['wrapper'], graph_ops.nei_sum))
             print(f'kernel {kname} {case} ' + json.dumps(row), flush=True)
             if case == 'readout':
                 report[kname] = row
@@ -272,7 +202,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     for name, info in cuda_build.build().items():
-        print(f'build {name} {info["seconds"]:.2f}s\n{info["ptxas"].strip()}')
+        print(f'build {name} {info["seconds"]:.2f}s\n{info["ptxas"].strip()}',
+              flush=True)
     phase('build', t0)
 
     t0 = time.perf_counter()
@@ -310,6 +241,7 @@ def main() -> int:
                     bound_ms=report[name]['bound_ms'],
                     bound_by=report[name]['bound_by'],
                     library_ms=report[name]['library_ms'],
+                    floor_ms=report[name]['floor_ms'],
                     host_ms=report[name]['host_ms'],
                     shape=dict(h=report[name]['h'], graph=report[name]['graph']))
                for name, k in KERNELS.items()]

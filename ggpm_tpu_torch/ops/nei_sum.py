@@ -5,21 +5,83 @@ Port of the Pallas TPU kernel ``ggpm_tpu/ops/pallas_gather.py:_kernel``
 source says how it is laid out and what bounds it.  The encoder calls it at
 both of its readouts (the node readout over ``agraph`` and the root readout).
 
-``nei_sum`` launches the kernel for CUDA tensors and raises if it cannot; it
-never falls back.  For CPU tensors it computes the plain version,
-``graph_ops.nei_sum``.  ``nei_sum.launches`` counts kernel launches.
+``plan`` chooses the launch (kernel kind, load width, threads per row, rows
+per block, grid) from the shapes alone, in plain Python, so the CPU tests
+reach it.  ``nei_sum`` launches the kernel for CUDA tensors and raises if
+it cannot; it never falls back.  For CPU tensors it computes the plain
+version, ``graph_ops.nei_sum``.  ``nei_sum.launches`` counts kernel
+launches.  ``device_plan`` and ``launch`` run a given plan, so a
+measurement can compare the kinds on the same inputs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 
 from . import graph_ops
 from .cuda_build import library
 
-_SMEM_LIMIT = 48 * 1024   # bytes of static-launch shared memory per block
+# the kernel's constants (csrc/nei_sum.cu: kMaxThreads, Kind)
+MAX_THREADS = 256          # threads per block
+KINDS = ('rows', 'tiled')
+MAX_A_TEMPLATE = 8         # A = 1..8 are templates; other A take the generic path
+SM_THREADS = 2048          # threads an H100 SM holds
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch of ``csrc/nei_sum.cu``: ``grid`` blocks of ``tpr`` x
+    ``rpb`` threads (``tpr`` threads per row, one column chunk of ``vec``
+    floats each; ``rpb`` rows per tile).  ``a_tmpl`` is A when
+    1 <= A <= 8, else 0 (generic path)."""
+    kind: str
+    vec: int
+    a_tmpl: int
+    tpr: int
+    rpb: int
+    grid: int
+
+
+def plan(n: int, a: int, hdim: int, vec: int, sms: int,
+         resident: Callable[[str, int], int],
+         kind: Optional[str] = None) -> Plan:
+    """The launch for ``graph`` [n, a] over rows of ``hdim`` floats read as
+    ``vec``-wide chunks, on a card of ``sms`` SMs.  ``resident(kind,
+    threads)`` is how many such blocks fit on one SM.
+
+    One chunk per thread (``tpr`` = the row's chunks rounded up to a warp,
+    at most ``MAX_THREADS``), so a small ``n`` still spreads over the SMs;
+    below two blocks per SM a block holds one row.  A grid that fits in one
+    wave takes the ``rows`` kind, one tile per block; a larger one the
+    persistent ``tiled`` kind, one block per resident slot.  That switch is
+    by shape alone and provisional: ``tiled`` won at a tiled batch of one
+    request's molecules and lost at uniformly random indices (PERF.md,
+    section 6).  ``kind`` forces a kind, for measurements that compare them."""
+    if n <= 0 or hdim % vec:
+        raise ValueError(f'nei_sum plan: n {n}, hdim {hdim}, vec {vec}')
+    cols = hdim // vec
+    tpr = min(MAX_THREADS, -(-cols // 32) * 32)
+    rpb = MAX_THREADS // tpr
+    if -(-n // rpb) < 2 * sms:
+        rpb = 1
+    threads, tiles = tpr * rpb, -(-n // rpb)
+    a_tmpl = a if 1 <= a <= MAX_A_TEMPLATE else 0
+    if kind is None:
+        kind = 'rows' if tiles <= sms * (SM_THREADS // threads) else 'tiled'
+    if kind not in KINDS:
+        raise ValueError(f'nei_sum plan: no kernel kind {kind!r}')
+    grid = tiles
+    if kind == 'tiled':
+        per_sm = resident(kind, threads)
+        if per_sm < 1:
+            raise ValueError('nei_sum tiled: no block fits on an SM')
+        grid = min(tiles, sms * per_sm)
+    return Plan(kind, vec, a_tmpl, tpr, rpb, grid)
 
 
 def _lib() -> ctypes.CDLL:
@@ -28,10 +90,12 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.ggpm_nei_sum_rows_per_block.argtypes = []
-        lib.ggpm_nei_sum_rows_per_block.restype = ctypes.c_int
+        occ = lib.ggpm_nei_sum_blocks_per_sm
+        occ.argtypes = [ctypes.c_int] * 4
+        occ.restype = ctypes.c_int
     return lib
 
 
@@ -48,7 +112,7 @@ def _check(h: torch.Tensor, graph: torch.Tensor) -> None:
         raise ValueError('nei_sum takes contiguous h and graph')
 
 
-def _vec(h: torch.Tensor, out: torch.Tensor) -> int:
+def vec_width(h: torch.Tensor, out: torch.Tensor) -> int:
     """Widest float load that every row start allows."""
     hdim = h.shape[1]
     for vec in (4, 2):
@@ -56,6 +120,44 @@ def _vec(h: torch.Tensor, out: torch.Tensor) -> int:
                                    for t in (h, out)):
             return vec
     return 1
+
+
+@functools.lru_cache(maxsize=1024)
+def _device_plan(device: int, n: int, a: int, hdim: int, vec: int,
+                 kind: Optional[str]) -> Plan:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    a_tmpl = a if 1 <= a <= MAX_A_TEMPLATE else 0
+
+    def resident(k, threads):
+        with torch.cuda.device(device):
+            return _lib().ggpm_nei_sum_blocks_per_sm(KINDS.index(k), vec,
+                                                     a_tmpl, threads)
+    return plan(n, a, hdim, vec, sms, resident, kind)
+
+
+def device_plan(h: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
+                kind: Optional[str] = None) -> Plan:
+    """``plan`` for these CUDA tensors on their card (``kind`` as there)."""
+    n, a = graph.shape
+    return _device_plan(h.device.index, n, a, h.shape[1], vec_width(h, out),
+                        kind)
+
+
+def launch(h: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
+           p: Plan) -> torch.Tensor:
+    """Launch plan ``p`` (from ``device_plan`` of the same tensors) into
+    ``out`` on the current stream; raises if the launch fails."""
+    n, a = graph.shape
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = _lib().ggpm_nei_sum_f32(
+            h.data_ptr(), graph.data_ptr(), out.data_ptr(), n, a,
+            h.shape[1] // p.vec, KINDS.index(p.kind), p.vec, p.a_tmpl, p.tpr,
+            p.rpb, p.grid, stream)
+    if err:
+        raise RuntimeError(f'nei_sum kernel launch failed: CUDA error {err}')
+    nei_sum.launches += 1
+    return out
 
 
 def nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
@@ -66,23 +168,11 @@ def nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
         return graph_ops.nei_sum(h, graph)
     if h.device.type != 'cuda':
         raise ValueError(f'nei_sum: no kernel for device {h.device}')
-    n, a = graph.shape
-    out = torch.empty((n, h.shape[1]), dtype=h.dtype, device=h.device)
-    if n == 0:
+    out = torch.empty((graph.shape[0], h.shape[1]), dtype=h.dtype,
+                      device=h.device)
+    if graph.shape[0] == 0:
         return out
-    lib = _lib()
-    if 4 * a * lib.ggpm_nei_sum_rows_per_block() > _SMEM_LIMIT:
-        raise ValueError(f'nei_sum: neighbour width {a} exceeds the '
-                         f'kernel\'s shared-memory index tile')
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.ggpm_nei_sum_f32(h.data_ptr(), graph.data_ptr(),
-                                   out.data_ptr(), n, a, h.shape[1],
-                                   _vec(h, out), stream)
-    if err:
-        raise RuntimeError(f'nei_sum kernel launch failed: CUDA error {err}')
-    nei_sum.launches += 1
-    return out
+    return launch(h, graph, out, device_plan(h, graph, out))
 
 
 nei_sum.launches = 0
