@@ -11,11 +11,15 @@ script exits non-zero:
 2. build   — compiles every kernel of ``ggpm_tpu_torch/csrc`` with nvcc
              into ``build/`` (one nvcc per source, started together).
 3. load    — the trained HOPV prop-opt model and vocab through the bridge,
-             and the first 64 in-vocab molecules of ``data/hopv15.csv``.
+             and the first 120 in-vocab molecules of ``data/hopv15.csv``
+             (the first 64 are the request).
 4. kernel  — each kernel against its plain PyTorch version on the card, at
              the shapes the serve path gives it (the 64 molecules' tables),
              at that tree tiled 64 times (a 4,096-molecule request), over
-             the neighbour widths A = 1..8 at the serve width, and at
+             the neighbour widths A = 1..8 at the serve width, at the
+             decoder's frontier readout for B = 64 and B = 120 (state
+             [500·B, 250], frontier table [B, 12] seeded from the
+             molecules' trees, ``kernel_bench.frontier_graph``), and at
              ragged and large cases (``kernel_bench.measure_cases``).
              ``ms``, ``plain_ms`` and ``library_ms`` are device times
              (calls captured in a CUDA graph, replayed between CUDA
@@ -29,6 +33,28 @@ script exits non-zero:
              and ``/properties`` for the 64 molecules; checks the latents,
              the kernel launch counts, the HOMO/LUMO MAE against the JAX
              package's, and the latents against the port on the CPU.
+6. decode  — the same server answers ``/reconstruct`` for the 64 molecules
+             and ``/sample`` with ``{"n": 64, "seed": 0}``; the counts are
+             reset just before and read just after.  Every answer is held
+             to the JAX package's (``decode_best`` on the CPU, the same
+             checkpoint, the JAX encoder's latents, max_decode_step 150;
+             ``ggpm_tpu_torch/goldens/decode_hopv64.json``, which
+             tests/test_torch_decode.py recomputes).  The rule, fixed before
+             any card run: every string equals the reference's and the
+             count of None is the same, except for fp32 near-ties.  For
+             each string that differs, the batch is decoded again with
+             per-step logs on the card and on the port's CPU path; the first
+             step where ``Generate fragment`` falls on the other side of 0.5,
+             or where the order of the top-5 candidates differs, is printed
+             with its margin in the CPU log (|p − 0.5| or the score gap).
+             The phase passes only if every such margin is below 1e-4 and
+             at most 2 of the 128 strings differ.  It also reruns both
+             decodes directly to count their steps, and fails unless
+             ``nei_sum`` launched once per decode step (plus 2 for the
+             encode of ``/reconstruct``).  Then, outside HTTP, it decodes
+             the first 120 molecules' latents at B = 120 and prints
+             molecules per second and the device's idle share
+             (``profile_serve.profile_decode``).
 
 The line before the last is ``nvidia-smi``'s; the one before it a JSON
 object listing every kernel; the last line is
@@ -49,6 +75,7 @@ import torch
 
 from ggpm_tpu_torch import kernel_bench
 from ggpm_tpu_torch.bridge import load_model
+from ggpm_tpu_torch.chem import canon_smiles
 from ggpm_tpu_torch.data.batching import to_model_batch
 from ggpm_tpu_torch.data.dataset import prune_to_vocab, read_csv_data
 from ggpm_tpu_torch.graph.mol_graph import tensorize
@@ -56,15 +83,21 @@ from ggpm_tpu_torch.graph.vocab import common_atom_vocab
 from ggpm_tpu_torch.kernel_bench import (device_ms, eager_ms, floor_ms,
                                          nvidia_smi)
 from ggpm_tpu_torch.models.api import encode
+from ggpm_tpu_torch.models.decode import decode_best, sample_prior
 from ggpm_tpu_torch.ops import cuda_build, graph_ops, nei_sum
 from ggpm_tpu_torch.ops.nei_sum import KINDS, device_plan, launch
+from ggpm_tpu_torch.profile_serve import decode_steps, profile_decode
 from ggpm_tpu_torch.serve import GgpmServer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, 'runs', 'QUALITY_hopv.json.ckpt')
 VOCAB = os.path.join(ROOT, 'runs', 'QUALITY_hopv.json.vocab.txt')
 DATA = os.path.join(ROOT, 'data', 'hopv15.csv')
+GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens', 'decode_hopv64.json')
 N_MOLS = 64
+N_DECODE = 120           # the separate decode measurement (ROADMAP A1)
+SAMPLE = {'n': 64, 'seed': 0}
+MAX_DECODE_STEP = 150
 N_CPU_CHECK = 8
 HTTP_TIMEOUT = 120
 
@@ -78,6 +111,9 @@ LATENT_ATOL = 1e-4
 # a sum of at most a few values of magnitude <= 1 in another order: a few
 # ulps of the sum
 KERNEL_ATOL = 1e-5
+# the decode rule (docstring, phase 6)
+NEAR_TIE = 1e-4
+MAX_DIFFERING = 2
 
 
 def nei_sum_kinds(h, g):
@@ -102,6 +138,10 @@ KERNELS = {
     'nei_sum': dict(
         route='cuda', source='ggpm_tpu_torch/csrc/nei_sum.cu',
         replaces='ggpm_tpu/ops/pallas_gather.py:33', wrapper=nei_sum,
+        call_sites=['ggpm_tpu_torch/models/encoder.py:36 (node readout)',
+                    'ggpm_tpu_torch/models/encoder.py:75 (root readout)',
+                    'ggpm_tpu_torch/models/decoder.py:115 (dec_topo, '
+                    'the decode frontier)'],
         cases=kernel_bench.measure_cases, kinds=nei_sum_kinds),
 }
 
@@ -110,12 +150,13 @@ def phase(name, t0):
     print(f'phase {name} ok {time.perf_counter() - t0:.3f}s', flush=True)
 
 
-def check_kernels(tree):
+def check_kernels(tree, decode_trees):
     floor = floor_ms()
     print(f'floor_ms {floor}', flush=True)
     report = {}
     for kname, k in KERNELS.items():
-        for case, h, g, row in k['cases'](tree, floor, k['wrapper']):
+        for case, h, g, row in k['cases'](tree, floor, k['wrapper'],
+                                          decode_trees):
             row['plan'], row['kinds'] = k['kinds'](h, g)
             errs = [row['max_abs_err']] + [
                 r['max_abs_err'] for r in row['kinds'].values()]
@@ -125,8 +166,7 @@ def check_kernels(tree):
                 eager_ms(lambda f=f: f(h, g))
                 for f in (k['wrapper'], graph_ops.nei_sum))
             print(f'kernel {kname} {case} ' + json.dumps(row), flush=True)
-            if case == 'readout':
-                report[kname] = row
+            report.setdefault(kname, {})[case] = row
     return report
 
 
@@ -142,25 +182,27 @@ def request(port, path, payload=None):
     return out
 
 
-def serve(model, vocab, rows):
-    """The main path: three requests through GgpmServer.  Returns the
-    answers and the kernel launches it made."""
-    smiles = [r[0] for r in rows]
+def reset_counts():
     for k in KERNELS.values():
         k['wrapper'].launches = 0
-    server = GgpmServer(model, vocab, device='cuda')
-    port = server.start(port=0)
+
+
+def read_counts():
+    return {name: k['wrapper'].launches for name, k in KERNELS.items()}
+
+
+def serve(port, rows):
+    """The encoding requests of the main path through GgpmServer.  Returns
+    the answers and the kernel launches they made."""
+    smiles = [r[0] for r in rows]
+    reset_counts()
     launches = []
-    try:
-        health = request(port, '/health')
-        enc = request(port, '/encode', {'smiles': smiles})
-        launches.append(nei_sum.launches)
-        props = request(port, '/properties', {'smiles': smiles})
-        launches.append(nei_sum.launches - launches[0])
-    finally:
-        server.stop()
-    counts = {name: k['wrapper'].launches for name, k in KERNELS.items()}
-    return health, enc, props, counts, launches
+    health = request(port, '/health')
+    enc = request(port, '/encode', {'smiles': smiles})
+    launches.append(nei_sum.launches)
+    props = request(port, '/properties', {'smiles': smiles})
+    launches.append(nei_sum.launches - launches[0])
+    return health, enc, props, read_counts(), launches
 
 
 def check_answers(health, enc, props, rows, model_cpu, batch):
@@ -188,6 +230,145 @@ def check_answers(health, enc, props, rows, model_cpu, batch):
                                        latent_err_vs_cpu=lat_err)), flush=True)
 
 
+def decode_requests(port, rows):
+    """The decoding requests of the main path.  Returns their answers,
+    seconds and ``nei_sum`` launches, and the kernel counts."""
+    smiles = [r[0] for r in rows]
+    reset_counts()
+    out = {}
+    for name, path, payload in (('reconstruct', '/reconstruct',
+                                 {'smiles': smiles}),
+                                ('sample', '/sample', SAMPLE)):
+        before = nei_sum.launches
+        t0 = time.perf_counter()
+        out[name] = dict(smiles=request(port, path, payload)['smiles'],
+                         seconds=time.perf_counter() - t0)
+        out[name]['launches'] = nei_sum.launches - before
+    return out, read_counts()
+
+
+def _order_gap(card, cpu):
+    """Where two logged candidate lists part: the first position whose
+    entry differs, and the CPU's score gap between its entry there and the
+    card's entry (the CPU list's last score if the card's is not in it)."""
+    keys = [c[:-1] for c in cpu]
+    for k, (a, c) in enumerate(zip(card, cpu)):
+        if a[:-1] != c[:-1]:
+            other = cpu[keys.index(a[:-1])][-1] if a[:-1] in keys else cpu[-1][-1]
+            return abs(c[-1] - other)
+    return None
+
+
+def first_divergence(card_log, cpu_log):
+    """First step where one molecule's card and CPU logs part: (step,
+    what, margin in the CPU log); None if they never do."""
+    for t, (a, c) in enumerate(zip(card_log, cpu_log)):
+        if t == 0 and a['root'] != c['root']:
+            return t, 'root', float('inf')   # the log holds no cls scores
+        for key in ('top-5-root-attachments', 'top-5-inter-cands'):
+            if key in a and key in c:
+                gap = _order_gap(a[key], c[key])
+                if gap is not None:
+                    return t, key, gap
+        pa, pc = a.get('Generate fragment'), c.get('Generate fragment')
+        if (pa is None) != (pc is None) or (
+                pa is not None and (pa > 0.5) != (pc > 0.5)):
+            return t, 'Generate fragment', (
+                float('inf') if pc is None else abs(pc - 0.5))
+    return None
+
+
+def check_decode(name, got, ref, card_logs, cpu_logs):
+    """The decode rule for one request: returns the differing indices and
+    prints each one's first divergence."""
+    if len(got) != len(ref):
+        raise AssertionError(f'/{name}: {len(got)} answers, need {len(ref)}')
+    if sum(s is None for s in got) != sum(s is None for s in ref):
+        raise AssertionError(f'/{name}: None count differs from the JAX '
+                             f'reference')
+    differ = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+    for i in differ:
+        div = first_divergence(card_logs()[i], cpu_logs()[i])
+        print(f'decode {name} differs at {i}: {got[i]} vs {ref[i]}; first '
+              f'divergence (step, what, CPU margin) {div}', flush=True)
+        if div is None or not div[2] < NEAR_TIE:
+            raise AssertionError(f'/{name}[{i}] differs from the JAX '
+                                 f'reference beyond an fp32 near-tie: {div}')
+    return differ
+
+
+def logs_of(model, vocab, latents):
+    """Per-step logs of a greedy decode of ``latents()`` on the model's
+    device, computed once on first use."""
+    memo = []
+
+    def get():
+        if not memo:
+            memo.append(decode_best(model, vocab, common_atom_vocab,
+                                    latents(), max_decode_step=MAX_DECODE_STEP,
+                                    log_steps=True)[0])
+        return memo[0]
+    return get
+
+
+def decode_phase(model, model_cpu, vocab, rows, answers, enc, batch):
+    """Hold the decoding answers to the JAX reference and count their
+    steps; returns what the phase prints."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    smiles = [r[0] for r in rows]
+    if golden['inputs'] != smiles or golden['sample_request'] != SAMPLE:
+        raise AssertionError('the golden file is not for these requests')
+    z_card = np.asarray(enc['latents'], dtype=np.float32)
+    z_prior = np.random.default_rng(SAMPLE['seed']).standard_normal(
+        (SAMPLE['n'], z_card.shape[1])).astype(np.float32)
+    differ = {}
+    for name, z_c, z_p in (
+            ('reconstruct', lambda: z_card,
+             lambda: encode(model_cpu, batch)[0]),
+            ('sample', lambda: z_prior, lambda: z_prior)):
+        differ[name] = check_decode(
+            name, answers[name]['smiles'], golden[name],
+            logs_of(model, vocab, z_c), logs_of(model_cpu, vocab, z_p))
+    n_differ = sum(len(d) for d in differ.values())
+    if n_differ > MAX_DIFFERING:
+        raise AssertionError(f'{n_differ} decoded strings differ from the '
+                             f'JAX reference, at most {MAX_DIFFERING} may')
+
+    # the same decodes again, directly: their steps and launches
+    steps = {}
+    for name, run in (
+            ('reconstruct', lambda: decode_best(
+                model, vocab, common_atom_vocab, z_card,
+                max_decode_step=MAX_DECODE_STEP)),
+            ('sample', lambda: sample_prior(
+                model, vocab, common_atom_vocab, SAMPLE['n'],
+                rng=np.random.default_rng(SAMPLE['seed']),
+                max_decode_step=MAX_DECODE_STEP))):
+        before = nei_sum.launches
+        results, out = run()
+        steps[name] = decode_steps(results)
+        direct = nei_sum.launches - before
+        encode_launches = 2 if name == 'reconstruct' else 0
+        if not (direct == steps[name] and answers[name]['launches'] ==
+                steps[name] + encode_launches and out == answers[name]['smiles']):
+            raise AssertionError(
+                f'/{name}: {answers[name]["launches"]} nei_sum launches in '
+                f'the request, {direct} in the direct decode of '
+                f'{steps[name]} steps (same answers: '
+                f'{out == answers[name]["smiles"]})')
+    canon = [canon_smiles(s) for s in smiles]
+    rec = answers['reconstruct']['smiles']
+    return dict(
+        {f'{n}_seconds': answers[n]['seconds'] for n in answers},
+        steps=steps, nei_sum_launches={n: answers[n]['launches']
+                                       for n in answers},
+        validity={n: sum(s is not None for s in answers[n]['smiles']) /
+                  len(answers[n]['smiles']) for n in answers},
+        exact_reconstruction=sum(a == b for a, b in zip(rec, canon)) / len(rec),
+        differ_from_jax=differ)
+
+
 def main() -> int:
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -208,43 +389,75 @@ def main() -> int:
 
     t0 = time.perf_counter()
     model, vocab = load_model(CKPT, VOCAB, device='cuda')
-    rows = prune_to_vocab(read_csv_data(DATA), vocab, verbose=False)[:N_MOLS]
-    if len(rows) != N_MOLS:
-        raise AssertionError(f'{len(rows)} in-vocab molecules, need {N_MOLS}')
-    tree = to_model_batch(tensorize(rows, vocab, common_atom_vocab),
-                          vocab.mask, pad=False)['tree']
+    all_rows = prune_to_vocab(read_csv_data(DATA), vocab,
+                              verbose=False)[:N_DECODE]
+    if len(all_rows) != N_DECODE:
+        raise AssertionError(f'{len(all_rows)} in-vocab molecules, need '
+                             f'{N_DECODE}')
+    rows = all_rows[:N_MOLS]
+    batches = [to_model_batch(tensorize(r, vocab, common_atom_vocab),
+                              vocab.mask, pad=False) for r in (rows, all_rows)]
+    tree = batches[0]['tree']
     phase('load', t0)
 
     t0 = time.perf_counter()
-    report = check_kernels(tree)
+    report = check_kernels(tree, [b['tree'] for b in batches])
     phase('kernel', t0)
 
     t0 = time.perf_counter()
-    health, enc, props, counts, per_request = serve(model, vocab, rows)
-    for name, n in counts.items():
-        if n == 0:
-            raise AssertionError(f'kernel {name} never launched on the path')
-    if min(per_request) < 2:
-        raise AssertionError(f'nei_sum launches per encoding request '
-                             f'{per_request}, expected >= 2')
-    model_cpu, _ = load_model(CKPT, VOCAB, device='cpu')
-    small = to_model_batch(tensorize(rows[:N_CPU_CHECK], vocab,
-                                     common_atom_vocab), vocab.mask, pad=False)
-    check_answers(health, enc, props, rows, model_cpu, small)
-    print(f'launches per encoding request {per_request}', flush=True)
-    phase('serve', t0)
+    server = GgpmServer(model, vocab, max_decode_step=MAX_DECODE_STEP,
+                        device='cuda')
+    port = server.start(port=0).server_address[1]
+    try:
+        health, enc, props, counts, per_request = serve(port, rows)
+        for name, n in counts.items():
+            if n == 0:
+                raise AssertionError(f'kernel {name} never launched on the '
+                                     f'encoding path')
+        if min(per_request) < 2:
+            raise AssertionError(f'nei_sum launches per encoding request '
+                                 f'{per_request}, expected >= 2')
+        model_cpu, _ = load_model(CKPT, VOCAB, device='cpu')
+        small = to_model_batch(tensorize(rows[:N_CPU_CHECK], vocab,
+                                         common_atom_vocab), vocab.mask,
+                               pad=False)
+        check_answers(health, enc, props, rows, model_cpu, small)
+        print(f'launches per encoding request {per_request}', flush=True)
+        phase('serve', t0)
 
-    kernels = [dict(name=name, route=k['route'], source=k['source'],
-                    replaces=k['replaces'], launches=counts[name],
-                    max_abs_err=report[name]['max_abs_err'],
-                    ms=report[name]['ms'], plain_ms=report[name]['plain_ms'],
-                    bound_ms=report[name]['bound_ms'],
-                    bound_by=report[name]['bound_by'],
-                    library_ms=report[name]['library_ms'],
-                    floor_ms=report[name]['floor_ms'],
-                    host_ms=report[name]['host_ms'],
-                    shape=dict(h=report[name]['h'], graph=report[name]['graph']))
-               for name, k in KERNELS.items()]
+        t0 = time.perf_counter()
+        answers, dcounts = decode_requests(port, rows)
+    finally:
+        server.stop()
+    for name, n in dcounts.items():
+        if n == 0:
+            raise AssertionError(f'kernel {name} never launched on the '
+                                 f'decoding path')
+    summary = decode_phase(model, model_cpu, vocab, rows, answers, enc,
+                           batches[0])
+    print('decode ' + json.dumps(summary), flush=True)
+    b120 = profile_decode(model, vocab, encode(model, batches[1])[0],
+                          max_decode_step=MAX_DECODE_STEP)
+    print('decode B120 ' + json.dumps(b120), flush=True)
+    counts = {name: counts[name] + dcounts[name] for name in counts}
+    phase('decode', t0)
+
+    kernels = []
+    for name, k in KERNELS.items():
+        r = report[name]['readout']
+        kernels.append(dict(
+            name=name, route=k['route'], source=k['source'],
+            replaces=k['replaces'], launches=counts[name],
+            max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
+            bound_ms=r['bound_ms'], bound_by=r['bound_by'],
+            library_ms=r['library_ms'], floor_ms=r['floor_ms'],
+            host_ms=r['host_ms'], call_sites=k['call_sites'],
+            shape=dict(h=r['h'], graph=r['graph']),
+            frontier={case: {key: row[key] for key in (
+                'h', 'graph', 'max_abs_err', 'ms', 'plain_ms', 'library_ms',
+                'bound_ms', 'bound_by', 'floor_ms', 'host_ms')}
+                for case, row in report[name].items()
+                if case.startswith('frontier')}))
     print(f'total {time.perf_counter() - t_all:.1f}s', flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)

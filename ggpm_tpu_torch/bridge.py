@@ -133,16 +133,14 @@ def flatten(tree: Mapping, prefix: str = '') -> Dict[str, Any]:
     return out
 
 
-def load_flax_params(model: torch.nn.Module,
-                     tree: Mapping) -> Dict[str, np.ndarray]:
+def load_flax_params(model: torch.nn.Module, tree: Mapping) -> None:
     """Copy a flax param tree (a checkpoint, or ``model.init``'s output with
     array leaves) into ``model``.  Every parameter of ``model`` must be in
-    the tree with its shape.  Returns the leaves under ``vae/decoder/``,
-    which the port has no module for yet, as ``{path: array}``; any other
-    leaf the model lacks is an error."""
+    the tree with its shape, and every leaf of the tree must have its
+    parameter in ``model``."""
     flat = flatten(tree.get('params', tree))
     own = model.state_dict()
-    state, aside, unknown = {}, {}, []
+    state, unknown = {}, []
     for path, value in flat.items():
         arr = np.asarray(value)
         *mod, leaf = path.split('/')
@@ -151,22 +149,18 @@ def load_flax_params(model: torch.nn.Module,
         name = '.'.join(mod + ['bias' if leaf == 'bias' else 'weight'])
         if name in own and leaf in ('kernel', 'bias', 'embedding'):
             state[name] = torch.from_numpy(np.ascontiguousarray(arr).copy())
-        elif path.startswith('vae/decoder/'):
-            aside[path] = np.asarray(value)
         else:
             unknown.append(path)
     if unknown:
         raise ValueError(f'flax params with no port module: {unknown}')
     model.load_state_dict(state, strict=True)
-    return aside
 
 
 def load_model(ckpt_path: str, vocab_path: str, device: str = 'cuda'
                ) -> Tuple[PropOptVAE, PairVocab]:
     """The trained prop-opt model of a checkpoint and its vocab file, in
     eval mode on ``device``.  The configuration is ``ModelConfig``'s
-    defaults with the vocab's sizes; the decoder's weights are read and
-    set aside until the decode slice."""
+    defaults with the vocab's sizes."""
     vocab = load_vocab_file(vocab_path)
     hvocab, ivocab = vocab.size()
     model = PropOptVAE(ModelConfig(hvocab_size=hvocab, ivocab_size=ivocab))

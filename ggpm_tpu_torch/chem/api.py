@@ -9,6 +9,7 @@ exactly (tests/test_native.py).
 
 from __future__ import annotations
 
+import functools
 from typing import Iterable, Optional
 
 from .aromatic import kekulize, perceive_aromaticity
@@ -40,6 +41,28 @@ def get_mol(smiles: str) -> Optional[Mol]:
     if smiles is None:
         return None
     return mol_from_smiles(smiles)
+
+
+@functools.lru_cache(maxsize=16384)
+def get_mol_shared(smiles: str) -> Optional[Mol]:
+    """Memoized ``get_mol`` for decode-time motif lookups, which parse the
+    same vocab ismiles many times.  The result is READ-ONLY: callers must
+    clone it before any edit."""
+    return get_mol(smiles)
+
+
+def valid_fast(mol: Mol) -> bool:
+    """Validity check (kekulize + aromaticity perception + valence); the
+    JAX package's native route computes the same."""
+    return sanitize_in_place(mol)
+
+
+def sanitize_smiles_fast(mol: Mol) -> Optional[str]:
+    """Sanitize, then canonical aromatic SMILES; None when the molecule is
+    chemically invalid."""
+    if sanitize_in_place(mol):
+        return mol_to_smiles(mol, kekule=False)
+    return None
 
 
 def get_smiles(mol: Mol) -> str:
@@ -85,6 +108,17 @@ def get_sub_mol(mol: Mol, sub_atoms: Iterable[int]) -> Mol:
     return new_mol
 
 
+def copy_edit_mol(mol: Mol) -> Mol:
+    """Deep copy keeping only symbol/charge/map and bond orders (reference
+    ``copy_edit_mol``, chemutils.py:156-170)."""
+    new_mol = Mol()
+    for a in mol.atoms:
+        new_mol.add_atom(copy_atom(a))
+    for b in mol.bonds:
+        new_mol.add_bond(b.a1, b.a2, b.order, b.aromatic)
+    return new_mol
+
+
 def get_clique_mol(mol: Mol, atoms: Iterable[int]) -> Optional[Mol]:
     """Extract the induced fragment and resanitize it as a standalone molecule
     (reference ``get_clique_mol``, chemutils.py:173-179).  Bond orders come
@@ -97,3 +131,14 @@ def get_clique_mol(mol: Mol, atoms: Iterable[int]) -> Optional[Mol]:
         b.aromatic = False
     ok = sanitize_in_place(frag)
     return frag if ok else None
+
+
+def atom_equal(a1: Atom, a2: Atom) -> bool:
+    """Symbol+charge equality (reference chemutils.py:116-117)."""
+    return a1.symbol == a2.symbol and a1.charge == a2.charge
+
+
+def bond_match(mol1: Mol, a1: int, b1: int, mol2: Mol, a2: int, b2: int) -> bool:
+    """Endpoint-typed bond match (reference chemutils.py:120-123)."""
+    return atom_equal(mol1.atoms[a1], mol2.atoms[a2]) and \
+        atom_equal(mol1.atoms[b1], mol2.atoms[b2])

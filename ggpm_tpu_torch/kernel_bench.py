@@ -5,7 +5,8 @@
 
 Cases: the two readouts of a 64-molecule HOPV request, that tree tiled 64
 times into one block-diagonal batch (a 4,096-molecule screening request),
-the neighbour width A swept over {1, 2, 3, 4, 6, 8} at the serve width, and
+the neighbour width A swept over {1, 2, 3, 4, 6, 8} at the serve width, the
+decoder's frontier readout at B = 64 and B = 120 (``frontier_graph``), and
 ragged, float4 and large random cases.  Per case it prints one JSON line:
 max abs error against the plain version, device ms of the kernel, of its
 plain version and of the one PyTorch call that computes the same function,
@@ -26,7 +27,7 @@ import argparse
 import json
 import os
 import subprocess
-from typing import Callable, Iterator, List, Tuple
+from typing import Callable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +43,9 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = os.path.join(_ROOT, 'runs', 'QUALITY_hopv.json.vocab.txt')
 DATA = os.path.join(_ROOT, 'data', 'hopv15.csv')
 N_MOLS = 64
+DECODE_BATCHES = (64, 120)   # a /reconstruct request; the B = 120 decode
+MAX_EDGES = 500              # decode state rows per molecule (decode_motif)
+MAX_NB = 12                  # frontier readout width (IncBase.max_nb)
 REQUEST_COPIES = 64      # 64 copies of the 64-molecule tree: 4,096 molecules
 A_SWEEP = (1, 2, 3, 4, 6, 8)
 
@@ -59,13 +63,29 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
-def serve_tree(vocab=None) -> dict:
-    """The tree level of the first ``N_MOLS`` in-vocab HOPV molecules, as
+def serve_tree(vocab=None, n: int = N_MOLS) -> dict:
+    """The tree level of the first ``n`` in-vocab HOPV molecules, as
     ``to_model_batch`` gives it (numpy arrays)."""
     vocab = vocab or load_vocab_file(VOCAB)
-    rows = prune_to_vocab(read_csv_data(DATA), vocab, verbose=False)[:N_MOLS]
+    rows = prune_to_vocab(read_csv_data(DATA), vocab, verbose=False)[:n]
     return to_model_batch(tensorize(rows, vocab, common_atom_vocab),
                           vocab.mask, pad=False)['tree']
+
+
+def frontier_graph(tree: dict) -> np.ndarray:
+    """A decode step's frontier table ``agraph_rows`` [B, MAX_NB] int32,
+    seeded from a tree of B molecules: row b lists the incoming messages of
+    molecule b's node of highest in-degree (the widest readout its decode
+    makes), zero-padded to the decoder's width.  The message ids lie in the
+    first rows of the ``MAX_EDGES * B`` state, as a decode's do: it reserves
+    rows from 1 upwards, B or fewer a step."""
+    agraph, scope = tree['agraph'], tree['scope']
+    out = np.zeros((len(scope), MAX_NB), np.int32)
+    for b, (start, length) in enumerate(scope):
+        nodes = agraph[start:start + length]
+        row = nodes[np.argmax((nodes > 0).sum(1))]
+        out[b, :agraph.shape[1]] = row
+    return out
 
 
 def tile_graph(graph: torch.Tensor, m: int, copies: int) -> torch.Tensor:
@@ -84,10 +104,13 @@ def random_table(gen: torch.Generator, m: int, hdim: int) -> torch.Tensor:
     return h
 
 
-def nei_sum_cases(tree: dict, gen: torch.Generator) -> List[Case]:
+def nei_sum_cases(tree: dict, gen: torch.Generator,
+                  decode_trees: Sequence[dict] = ()) -> List[Case]:
     """(name, h, graph) on ``gen``'s device: the serve path's two readouts,
-    the request-scale tiling, the A sweep at the serve width, then ragged,
-    float4 and large random cases.  Values of ``h`` come from ``gen``."""
+    the request-scale tiling, the A sweep at the serve width, the decode
+    frontier over a ``MAX_EDGES * B`` state for each of ``decode_trees``,
+    then ragged, float4 and large random cases.  Values of ``h`` come from
+    ``gen``."""
     dev = gen.device
     n_mess, n_nodes = tree['fmess'].shape[0], tree['fnode'].shape[0]
     agraph = torch.as_tensor(tree['agraph'], device=dev)
@@ -101,6 +124,10 @@ def nei_sum_cases(tree: dict, gen: torch.Generator) -> List[Case]:
         cases.append((f'A{a}-H250', h, torch.randint(
             0, n_mess, (n_nodes, a), generator=gen, device=dev,
             dtype=torch.int32)))
+    for dtree in decode_trees:
+        g = torch.as_tensor(frontier_graph(dtree), device=dev)
+        cases.append((f'frontier-B{g.shape[0]}',
+                      random_table(gen, MAX_EDGES * g.shape[0], 250), g))
     for name, m, hdim, n, a in (('ragged-A1-H251', 1001, 251, 37, 1),
                                 ('float4-H256', 4097, 256, 1001, 3),
                                 ('large', 32768, 256, 65536, 6)):
@@ -187,14 +214,15 @@ def floor_ms() -> float:
     return device_ms(x.zero_)
 
 
-def measure_cases(tree: dict, floor: float, wrapper: Callable = nei_sum
+def measure_cases(tree: dict, floor: float, wrapper: Callable = nei_sum,
+                  decode_trees: Sequence[dict] = ()
                   ) -> Iterator[Tuple[str, torch.Tensor, torch.Tensor, dict]]:
     """(name, h, graph, row) for every case of ``nei_sum_cases`` on the
     card, ``h`` from a seeded generator; ``row`` has the shapes, bytes and
     bound, ``wrapper``'s max abs error against the plain version, and the
     device ms of ``wrapper``, the plain version and the library call."""
     gen = torch.Generator(device='cuda').manual_seed(0)
-    for case, h, g in nei_sum_cases(tree, gen):
+    for case, h, g in nei_sum_cases(tree, gen, decode_trees):
         ref = graph_ops.nei_sum(h, g)
         nbytes, ops = nei_sum_bytes(h, g), nei_sum_ops(h, g)
         bound_by, bound_ms = bound(nbytes, ops)
@@ -219,7 +247,10 @@ def main(argv=None) -> List[dict]:
     smi = nvidia_smi()
     print(smi, flush=True)
     rows = []
-    for case, _, _, row in measure_cases(serve_tree(), floor_ms()):
+    vocab = load_vocab_file(VOCAB)
+    decode_trees = [serve_tree(vocab, n) for n in DECODE_BATCHES]
+    for case, _, _, row in measure_cases(serve_tree(vocab), floor_ms(),
+                                         decode_trees=decode_trees):
         row = dict(case=case, device=smi, **row)
         print('nei_sum ' + json.dumps(row), flush=True)
         rows.append(row)

@@ -1,6 +1,6 @@
-"""Model-level convenience API (counterpart of ``ggpm_tpu/models/api.py``;
-``reconstruct``, ``sample`` and ``optimize_recs`` arrive with the decode
-slice)."""
+"""Model-level convenience API (counterpart of ``ggpm_tpu/models/api.py``:
+``encode``, ``reconstruct`` and ``sample``; ``optimize_recs`` arrives with
+latent search)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,10 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from ..data.batching import to_model_batch
+from ..graph.vocab import PairVocab, common_atom_vocab
+from .decode import decode_best, sample_prior
 
 _TREE_KEYS = ('fnode', 'fmess', 'agraph', 'bgraph', 'scope')
 
@@ -38,3 +42,24 @@ def encode(model, batch: dict, eps: Optional[torch.Tensor] = None):
     unless ``eps`` is given (reference eval-time convention)."""
     device = next(model.parameters()).device
     return model.encode_latent(tree_to_device(batch['tree'], device), eps)
+
+
+def reconstruct(model, mb, vocab: PairVocab, avocab=common_atom_vocab,
+                greedy: bool = True, max_decode_step: int = 150, **kwargs):
+    """Encode without noise, then decode (reference ``reconstruct``).
+    Returns (property_outputs_or_None, (results, smiles))."""
+    z, _ = encode(model, to_model_batch(mb, vocab.mask, pad=False))
+    props = None
+    if hasattr(model, 'predict_properties'):
+        with torch.no_grad():
+            props = tuple(p.cpu().numpy() for p in model.predict_properties(z))
+    out = decode_best(model, vocab, avocab, z, greedy=greedy,
+                      max_decode_step=max_decode_step, **kwargs)
+    return props, out
+
+
+def sample(model, vocab: PairVocab, batch_size: int,
+           avocab=common_atom_vocab, seed: int = 0, **kwargs):
+    """Sample from the prior (reference ``sample``)."""
+    return sample_prior(model, vocab, avocab, batch_size,
+                        rng=np.random.default_rng(seed), **kwargs)

@@ -1,6 +1,7 @@
-"""Message-passing LSTM over padded edge-message tables (forward of
-``ggpm_tpu/models/rnn.py:MPNLSTMCell.__call__``; the GRU cell and the
-decoder's split-step API arrive with the decode slice).
+"""Message-passing LSTM over padded edge-message tables (counterpart of
+``ggpm_tpu/models/rnn.py:MPNLSTMCell``: the dense forward and the decoder's
+one-step ``cell``; the GRU cell and the teacher-forced split-step API
+arrive with the hier family and training).
 
 State layout: ``h`` and ``c`` are ``[num_messages, hidden]`` buffers whose
 row 0 is the all-zero padding message.
@@ -32,6 +33,33 @@ class MPNLSTMCell(nn.Module):
         self.W_o = nn.Linear(n_in, hidden_size)
         self.W_f = nn.Linear(n_in, hidden_size)
         self.W = nn.Linear(n_in, hidden_size)
+
+    def init_state(self, num_mess: int, device=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Zero ``(h, c)`` buffers of ``num_mess`` rows."""
+        h = torch.zeros((num_mess, self.hidden_size), device=device)
+        return h, torch.zeros_like(h)
+
+    @staticmethod
+    def hidden(state) -> torch.Tensor:
+        return state[0]
+
+    def cell(self, x: torch.Tensor, state_nei) -> Tuple[torch.Tensor, ...]:
+        """One application to rows with inputs ``x`` [R, in] and gathered
+        neighbour states ``(h_nei, c_nei)``, each [R, A, H] (reference
+        rnn.py:86-121).  The per-neighbour forget gate by linearity:
+        W_f([x, h_k]) = W_f([x, 0]) + h_k @ Kf."""
+        h_nei, c_nei = state_nei
+        in_dim = x.shape[-1]
+        h_sum = h_nei.sum(dim=-2)
+        xh = torch.cat([x, h_sum], dim=-1)
+        i = torch.sigmoid(self.W_i(xh))
+        o = torch.sigmoid(self.W_o(xh))
+        u = torch.tanh(self.W(xh))
+        xf = F.linear(x, self.W_f.weight[:, :in_dim], self.W_f.bias)
+        f = torch.sigmoid(xf[..., None, :] + h_nei @ self.W_f.weight[:, in_dim:].t())
+        c = i * u + (f * c_nei).sum(dim=-2)
+        return o * torch.tanh(c), c
 
     def forward(self, fmess: torch.Tensor,
                 bgraph: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

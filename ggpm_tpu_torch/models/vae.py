@@ -1,9 +1,7 @@
-"""The motif VAE with property heads, as far as encoding and property
-prediction need it (counterpart of ``ggpm_tpu/models/vae.py``:
-``ModelConfig``, ``PropertyVAE``, ``PropOptVAE``).
-
-The decoder's parameters are read from a checkpoint by the bridge and kept
-aside until the decode slice (``bridge.load_params``).
+"""The motif VAE with property heads, as far as encoding, property
+prediction and decoding need it (counterpart of ``ggpm_tpu/models/vae.py``:
+``ModelConfig``, ``PropertyVAE``, ``PropOptVAE``; the training forward comes
+with the training slice).
 
 Reference: ggpm/property_vae.py (PropertyVAE, PropOptVAE).
 """
@@ -16,14 +14,15 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from .decoder import MotifDecoder
 from .encoder import MotifEncoder
 from .heads import PropertyOptimizer
 
 
 @dataclass
 class ModelConfig:
-    """The fields of ``ggpm_tpu.models.vae.ModelConfig`` that encoding and
-    property prediction read.  The defaults are the trained HOPV prop-opt
+    """The fields of ``ggpm_tpu.models.vae.ModelConfig`` that encoding,
+    property prediction and decoding read.  The defaults are the trained HOPV prop-opt
     model's (scripts/quality_run.py); the encoder is the LSTM one, with
     embeddings tied between encoder and decoder, at dropout 0."""
     hvocab_size: int
@@ -33,11 +32,13 @@ class ModelConfig:
     latent_size: int = 24
     linear_hidden_size: int = 128
     depthT: int = 20
+    diterT: int = 1
 
 
 class PropertyVAE(nn.Module):
     """Motif-level VAE (reference property_vae.py:64-127; registry name
-    ``prop``): encoder and posterior heads."""
+    ``prop``): encoder, posterior heads and decoder, with the embeddings
+    tied between encoder and decoder (reference vae.py:100-109)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -48,6 +49,11 @@ class PropertyVAE(nn.Module):
                                     cfg.depthT)
         self.R_mean = nn.Linear(cfg.hidden_size, cfg.latent_size)
         self.R_var = nn.Linear(cfg.hidden_size, cfg.latent_size)
+        self.decoder = MotifDecoder(self.E_c, self.E_i, cfg.hidden_size,
+                                    cfg.latent_size, cfg.diterT)
+
+    def _decoder(self) -> MotifDecoder:
+        return self.decoder
 
     def rsample(self, z_vecs: torch.Tensor, eps: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,6 +88,9 @@ class PropOptVAE(nn.Module):
         self.property_optim = PropertyOptimizer(
             self.half_latent, cfg.latent_size - self.half_latent,
             cfg.linear_hidden_size)
+
+    def _decoder(self) -> MotifDecoder:
+        return self.vae.decoder
 
     def encode_latent(self, tree: Dict[str, torch.Tensor],
                       eps: Optional[torch.Tensor] = None):

@@ -64,10 +64,10 @@ def test_reader_rejects_trailing_bytes():
 
 def test_mapping_of_trained_checkpoint(trees):
     """Dense kernels arrive transposed, embeddings and biases as they are;
-    the decoder's leaves are set aside."""
+    every leaf of the checkpoint, the decoder's included, is carried."""
     tree = trees[0]
     model = PropOptVAE(ModelConfig(hvocab_size=91, ivocab_size=380))
-    aside = load_flax_params(model, tree)
+    assert load_flax_params(model, tree) is None
     flat = flatten(tree['params'])
     state = model.state_dict()
     p = 'vae/encoder/tree_encoder/rnn/W_f/'
@@ -80,8 +80,33 @@ def test_mapping_of_trained_checkpoint(trees):
     np.testing.assert_array_equal(
         state['property_optim.lumo_linear.Dense_1.weight'],
         flat['property_optim/lumo_linear/Dense_1/kernel'].T)
-    assert len(state) + len(aside) == len(flat)
-    assert aside and all(k.startswith('vae/decoder/') for k in aside)
+    p = 'vae/decoder/'
+    np.testing.assert_array_equal(state['vae.decoder.rnn.W_i.weight'],
+                                  flat[p + 'rnn/W_i/kernel'].T)
+    np.testing.assert_array_equal(state['vae.decoder.clsNN.Dense_1.bias'],
+                                  flat[p + 'clsNN/Dense_1/bias'])
+    np.testing.assert_array_equal(state['vae.decoder.W_root.weight'],
+                                  flat[p + 'W_root/kernel'].T)
+    assert len(state) == len(flat) == 54
+    assert {k.replace('.', '/').rsplit('/', 1)[0] for k in state} == {
+        k.rsplit('/', 1)[0] for k in flat}
+
+
+@pytest.mark.parametrize('leaf', [
+    {'A_topo': {'kernel': np.zeros((250, 24), np.float32)}},
+    {'rnn': {'W_z': {'bias': np.zeros(250, np.float32)}}},
+    {'topoNN': {'Dense_2': {'kernel': np.zeros((250, 1), np.float32)}}}],
+    ids=['A_topo', 'rnn/W_z', 'topoNN/Dense_2'])
+def test_mapping_rejects_an_unknown_decoder_leaf(trees, leaf):
+    """A decoder leaf with no port module (an attention head, a GRU gate,
+    an extra layer) is an error, as any other unknown leaf."""
+    model = PropOptVAE(ModelConfig(hvocab_size=91, ivocab_size=380))
+    params = dict(trees[0]['params'])
+    vae = dict(params['vae'])
+    vae['decoder'] = {**vae['decoder'], **leaf}
+    params['vae'] = vae
+    with pytest.raises(ValueError, match='no port module'):
+        load_flax_params(model, params)
 
 
 def test_mapping_rejects_unknown_and_missing(trees):
@@ -101,6 +126,11 @@ def test_load_model_on_cpu():
     assert not model.training
     assert all(p.device.type == 'cpu' for p in model.parameters())
     assert model.vae.encoder.tree_encoder.rnn.W_i.weight.shape == (250, 520)
-    # the encoder's embeddings are the VAE's own (tied with the decoder)
+    assert model.vae.decoder.rnn.W_i.weight.shape == (250, 520)
+    assert model.vae.decoder.W_node.weight.shape == (250, 500)
+    assert model.vae.decoder.clsNN.Dense_1.weight.shape == (91, 250)
+    # the embeddings are the VAE's own, tied between encoder and decoder
     assert model.vae.encoder._embed[0] is model.vae.E_c
+    assert model.vae.decoder._embed == (model.vae.E_c, model.vae.E_i)
+    assert model._decoder() is model.vae.decoder
 

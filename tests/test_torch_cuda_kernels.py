@@ -26,11 +26,13 @@ pytestmark = pytest.mark.cuda
 
 ATOL = 1e-5
 
-# (M, H, N, A, offset): the serve readouts, the A sweep (templates 1..8 and
-# the generic path), H in {1, 3, 250, 251, 256}, ragged N, a grid of many
+# (M, H, N, A, offset): the serve readouts, the decode frontier at B = 64
+# and B = 120 (generic path, A = 12), the A sweep (templates 1..8 and the
+# generic path), H in {1, 3, 250, 251, 256}, ragged N, a grid of many
 # tiles per persistent block, and h starting 1 or 2 floats off a 16-byte
 # boundary (scalar and float2 loads where H allows float4)
-SHAPES = ([(1577, 250, 853, 6, 0), (1577, 250, 64, 6, 0)] +
+SHAPES = ([(1577, 250, 853, 6, 0), (1577, 250, 64, 6, 0),
+           (32000, 250, 64, 12, 0), (60000, 250, 120, 12, 0)] +
           [(1577, 250, 853, a, 0) for a in (1, 2, 3, 4, 5, 7, 8, 9, 13)] +
           [(301, 1, 77, 3, 0), (301, 3, 77, 2, 0), (1001, 251, 37, 1, 0),
            (4097, 256, 1001, 3, 0), (20000, 250, 40001, 6, 0),

@@ -1,13 +1,16 @@
 """The port's GgpmServer on the CPU against the JAX package's encode and
 property heads, called directly (the JAX GgpmServer's own tests depend on a
-fixture whose data are not in the repo, so it is no oracle), and the JAX
-reference numbers that chip_smoke.py holds the card's answers to."""
+fixture whose data are not in the repo, so it is no oracle), its HTTP
+surface against the JAX server's, and the JAX reference numbers that
+chip_smoke.py holds the card's answers to.  The decoding endpoints are held
+to the JAX package in tests/test_torch_decode.py."""
 
 import importlib.util
 import json
 import os
 import urllib.error
 import urllib.request
+from http.server import ThreadingHTTPServer
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +33,7 @@ from ggpm_tpu_torch.data.dataset import prune_to_vocab, read_csv_data
 from ggpm_tpu_torch.graph.mol_graph import tensorize
 from ggpm_tpu_torch.graph.vocab import common_atom_vocab
 from ggpm_tpu_torch.models.api import encode
-from ggpm_tpu_torch.serve import DECODE_ENDPOINTS, GgpmServer
+from ggpm_tpu_torch.serve import GgpmServer
 
 torch.set_num_threads(1)
 
@@ -78,8 +81,8 @@ def _jax_predict(side, rows):
 def server():
     model, vocab = load_model(CKPT, VOCAB, device='cpu')
     srv = GgpmServer(model, vocab, device='cpu')
-    port = srv.start(port=0)
-    yield dict(port=port, vocab=vocab)
+    httpd = srv.start(port=0)
+    yield dict(port=httpd.server_address[1], vocab=vocab, httpd=httpd)
     srv.stop()
     assert srv._thread is None
 
@@ -114,10 +117,27 @@ def test_encode_and_properties_match_jax(server, jax_side):
     np.testing.assert_allclose(props['lumo'], lumo, rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize('path', DECODE_ENDPOINTS)
+@pytest.mark.parametrize('path', ['/optimize'])
 def test_decode_endpoints_answer_501(server, path):
     code, out = _call(server['port'], path, {'smiles': ['CCO'], 'n': 2})
     assert code == 501 and 'ROADMAP' in out['error']
+
+
+def test_start_returns_the_server_on_all_interfaces(server):
+    """The reference's surface: ``start`` binds 0.0.0.0 and returns the
+    ThreadingHTTPServer."""
+    httpd = server['httpd']
+    assert isinstance(httpd, ThreadingHTTPServer)
+    assert httpd.server_address[0] == '0.0.0.0'
+    assert httpd.server_address[1] == server['port'] > 0
+
+
+@pytest.mark.parametrize('path', ['/encode', '/properties', '/reconstruct'])
+def test_error_body_is_the_reference_text(server, path):
+    """A body with no ``smiles`` key: the reference replies
+    ``{'error': str(e)}`` for the KeyError, and so does the port."""
+    code, out = _call(server['port'], path, {})
+    assert code == 500 and out == {'error': "'smiles'"}
 
 
 @pytest.mark.parametrize('path,payload,expect', [
