@@ -28,11 +28,16 @@ script exits non-zero:
              reads; ``host_ms`` is the eager back-to-back time, which the
              host's dispatch sets at small shapes.  ``kinds`` forces each
              launch kind of the kernel on the same inputs, each checked
-             and timed; ``plan`` is the launch the wrapper chose.
+             and timed; ``plan`` is the launch the wrapper chose.  Then
+             the depth loop's row gather (``gather_rows``) at the 64
+             molecules' ``bgraph`` and width 750, held bit for bit to the
+             plain copy and timed alike (``kernel_bench.gather_case``).
 5. serve   — ``GgpmServer`` on a free port answers ``/health``, ``/encode``
              and ``/properties`` for the 64 molecules; checks the latents,
-             the kernel launch counts, the HOMO/LUMO MAE against the JAX
-             package's, and the latents against the port on the CPU.
+             the kernel launch counts (each request: 2 ``nei_sum``, one
+             ``gather_rows`` per depth round, no ``transpose_sum``), the
+             HOMO/LUMO MAE against the JAX package's, and the latents
+             against the port on the CPU.
 6. decode  — the same server answers ``/reconstruct`` for the 64 molecules
              and ``/sample`` with ``{"n": 64, "seed": 0}``; the counts are
              reset just before and read just after.  Every answer is held
@@ -51,10 +56,27 @@ script exits non-zero:
              at most 2 of the 128 strings differ.  It also reruns both
              decodes directly to count their steps, and fails unless
              ``nei_sum`` launched once per decode step (plus 2 for the
-             encode of ``/reconstruct``).  Then, outside HTTP, it decodes
+             encode of ``/reconstruct``) and ``gather_rows`` once per
+             depth round of that encode.  Then, outside HTTP, it decodes
              the first 120 molecules' latents at B = 120 and prints
              molecules per second and the device's idle share
              (``profile_serve.profile_decode``).
+7. train  — the canonical configuration (``prop``: LSTM, hidden = embed
+             = 250, latent 24, depthT 20, batch 20, β 0.1, Adam lr 1e-3,
+             clip 20) from the ``vae/`` weights of the same checkpoint,
+             trained through the port's ``Trainer`` on the 17 full HOPV
+             batches of 20 (``profile_train``); the counts are reset just
+             before and read just after.  Its first 3 steps are held to the
+             JAX package's (``ggpm_tpu_torch/goldens/train_hopv.json``,
+             which tests/test_torch_train.py recomputes) by the rule in
+             ``profile_train`` fixed before any card run; then it times an
+             epoch (train mols/s, host ms per step, the device's idle
+             share, launches per step, from ``profile_train.profile_epoch``)
+             and fails unless every kernel of the step launched.  Last, each
+             kernel of the step at the first batch's shapes against its
+             plain version (max abs error at most 1e-5) and against its
+             sum written out in the kernel's order (bit for bit), timed as
+             in phase 4 (``kernel_bench.train_cases``).
 
 The line before the last is ``nvidia-smi``'s; the one before it a JSON
 object listing every kernel; the last line is
@@ -73,7 +95,7 @@ import urllib.request
 import numpy as np
 import torch
 
-from ggpm_tpu_torch import kernel_bench
+from ggpm_tpu_torch import kernel_bench, profile_train
 from ggpm_tpu_torch.bridge import load_model
 from ggpm_tpu_torch.chem import canon_smiles
 from ggpm_tpu_torch.data.batching import to_model_batch
@@ -84,7 +106,7 @@ from ggpm_tpu_torch.kernel_bench import (device_ms, eager_ms, floor_ms,
                                          nvidia_smi)
 from ggpm_tpu_torch.models.api import encode
 from ggpm_tpu_torch.models.decode import decode_best, sample_prior
-from ggpm_tpu_torch.ops import cuda_build, graph_ops, nei_sum
+from ggpm_tpu_torch.ops import cuda_build, gather_rows, graph_ops, nei_sum
 from ggpm_tpu_torch.ops.nei_sum import KINDS, device_plan, launch
 from ggpm_tpu_torch.profile_serve import decode_steps, profile_decode
 from ggpm_tpu_torch.serve import GgpmServer
@@ -94,6 +116,8 @@ CKPT = os.path.join(ROOT, 'runs', 'QUALITY_hopv.json.ckpt')
 VOCAB = os.path.join(ROOT, 'runs', 'QUALITY_hopv.json.vocab.txt')
 DATA = os.path.join(ROOT, 'data', 'hopv15.csv')
 GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens', 'decode_hopv64.json')
+TRAIN_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
+                            'train_hopv.json')
 N_MOLS = 64
 N_DECODE = 120           # the separate decode measurement (ROADMAP A1)
 SAMPLE = {'n': 64, 'seed': 0}
@@ -131,19 +155,40 @@ def nei_sum_kinds(h, g):
     return dataclasses.asdict(device_plan(h, g, out)), kinds
 
 
-# every kernel of the serve path: its wrapper, its cases (each timed with
-# the wrapper, the plain version and the one PyTorch call that computes the
-# same function, a yardstick only) and its launch kinds
+# every kernel of the port, keyed as ``profile_train.KERNELS`` (which holds
+# the wrappers and their launch counts): what it replaces, where it is
+# called, the paths that launch it, and the case of its row in the kernels
+# line (``readout`` of phase 4, the others of the train phase)
 KERNELS = {
     'nei_sum': dict(
         route='cuda', source='ggpm_tpu_torch/csrc/nei_sum.cu',
-        replaces='ggpm_tpu/ops/pallas_gather.py:33', wrapper=nei_sum,
-        call_sites=['ggpm_tpu_torch/models/encoder.py:36 (node readout)',
-                    'ggpm_tpu_torch/models/encoder.py:75 (root readout)',
-                    'ggpm_tpu_torch/models/decoder.py:115 (dec_topo, '
-                    'the decode frontier)'],
-        cases=kernel_bench.measure_cases, kinds=nei_sum_kinds),
+        replaces='ggpm_tpu/ops/pallas_gather.py:33', main_case='readout',
+        paths=('serve', 'decode', 'train'),
+        call_sites=['ggpm_tpu_torch/models/encoder.py:60 (node readout)',
+                    'ggpm_tpu_torch/models/encoder.py:103 (root readout)',
+                    'ggpm_tpu_torch/models/decoder.py:298 (dec_topo, '
+                    'the decode frontier)',
+                    'ggpm_tpu_torch/models/decoder.py:174 (_run_scan, the '
+                    'teacher-forced frontier)']),
+    'transpose_sum': dict(
+        route='cuda', source='ggpm_tpu_torch/csrc/nei_sum.cu',
+        replaces='ggpm_tpu/ops/graph_ops.py:111 (_nei_sum_t_bwd) and :134 '
+                 '(_gather_nd_t_bwd): XLA gathers, no Pallas kernel; the '
+                 'backward of B1, ggpm_tpu/ops/pallas_gather.py:33',
+        main_case='depth-gather-bwd', paths=('train',),
+        call_sites=['ggpm_tpu_torch/ops/nei_sum.py (nei_sum_t backward)',
+                    'ggpm_tpu_torch/ops/gather_rows.py (gather_nd_t '
+                    'backward)']),
+    'gather_rows': dict(
+        route='cuda', source='ggpm_tpu_torch/csrc/gather_rows.cu',
+        replaces='ggpm_tpu/ops/graph_ops.py:122 (gather_nd_t forward): an '
+                 'XLA gather, no Pallas kernel',
+        main_case='depth-gather', paths=('serve', 'decode', 'train'),
+        call_sites=['ggpm_tpu_torch/models/rnn.py (MPNLSTMCell.forward, '
+                    'the depth loop)']),
 }
+WRAPPERS = profile_train.KERNELS
+assert set(KERNELS) == set(WRAPPERS)
 
 
 def phase(name, t0):
@@ -151,23 +196,44 @@ def phase(name, t0):
 
 
 def check_kernels(tree, decode_trees):
+    """The serve and decode paths' kernels at their shapes: ``nei_sum`` at
+    every case of ``kernel_bench.measure_cases`` with each launch kind
+    forced, and the depth loop's ``gather_rows`` of the request's tree."""
     floor = floor_ms()
     print(f'floor_ms {floor}', flush=True)
     report = {}
-    for kname, k in KERNELS.items():
-        for case, h, g, row in k['cases'](tree, floor, k['wrapper'],
-                                          decode_trees):
-            row['plan'], row['kinds'] = k['kinds'](h, g)
-            errs = [row['max_abs_err']] + [
-                r['max_abs_err'] for r in row['kinds'].values()]
-            if not max(errs) <= KERNEL_ATOL:
-                raise AssertionError(f'{kname}/{case}: max abs err {errs}')
-            row['host_ms'], row['plain_host_ms'] = (
-                eager_ms(lambda f=f: f(h, g))
-                for f in (k['wrapper'], graph_ops.nei_sum))
-            print(f'kernel {kname} {case} ' + json.dumps(row), flush=True)
-            report.setdefault(kname, {})[case] = row
+    for case, h, g, row in kernel_bench.measure_cases(tree, floor, nei_sum,
+                                                      decode_trees):
+        row['plan'], row['kinds'] = nei_sum_kinds(h, g)
+        errs = [row['max_abs_err']] + [
+            r['max_abs_err'] for r in row['kinds'].values()]
+        if not max(errs) <= KERNEL_ATOL:
+            raise AssertionError(f'nei_sum/{case}: max abs err {errs}')
+        row['host_ms'], row['plain_host_ms'] = (
+            eager_ms(lambda f=f: f(h, g))
+            for f in (nei_sum, graph_ops.nei_sum))
+        print(f'kernel nei_sum {case} ' + json.dumps(row), flush=True)
+        report.setdefault('nei_sum', {})[case] = row
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    for row in checked(kernel_bench.measure(
+            [kernel_bench.gather_case('depth-gather-serve', tree, gen)],
+            floor)):
+        report.setdefault(row['kernel'], {})[row['case']] = row
     return report
+
+
+def checked(rows):
+    """Print and check each row of ``kernel_bench.measure``: max abs error
+    at most ``KERNEL_ATOL`` against the plain version, and bit for bit
+    against the in-order sum."""
+    for row in rows:
+        print(f'kernel {row["kernel"]} {row["case"]} ' + json.dumps(row),
+              flush=True)
+        if not (row['max_abs_err'] <= KERNEL_ATOL and row['bit_exact']):
+            raise AssertionError(f'{row["kernel"]}/{row["case"]}: max abs '
+                                 f'err {row["max_abs_err"]}, bit exact '
+                                 f'{row["bit_exact"]}')
+        yield row
 
 
 def request(port, path, payload=None):
@@ -183,26 +249,29 @@ def request(port, path, payload=None):
 
 
 def reset_counts():
-    for k in KERNELS.values():
-        k['wrapper'].launches = 0
+    for w in WRAPPERS.values():
+        w.launches = 0
 
 
 def read_counts():
-    return {name: k['wrapper'].launches for name, k in KERNELS.items()}
+    return {name: w.launches for name, w in WRAPPERS.items()}
 
 
 def serve(port, rows):
     """The encoding requests of the main path through GgpmServer.  Returns
-    the answers and the kernel launches they made."""
+    the answers, the kernel launches they made, and each request's."""
     smiles = [r[0] for r in rows]
     reset_counts()
-    launches = []
+    per_request = []
     health = request(port, '/health')
-    enc = request(port, '/encode', {'smiles': smiles})
-    launches.append(nei_sum.launches)
-    props = request(port, '/properties', {'smiles': smiles})
-    launches.append(nei_sum.launches - launches[0])
-    return health, enc, props, read_counts(), launches
+    for path in ('/encode', '/properties'):
+        before = read_counts()
+        out = request(port, path, {'smiles': smiles})
+        per_request.append({k: v - before[k]
+                            for k, v in read_counts().items()})
+        if path == '/encode':
+            enc = out
+    return health, enc, out, read_counts(), per_request
 
 
 def check_answers(health, enc, props, rows, model_cpu, batch):
@@ -232,18 +301,21 @@ def check_answers(health, enc, props, rows, model_cpu, batch):
 
 def decode_requests(port, rows):
     """The decoding requests of the main path.  Returns their answers,
-    seconds and ``nei_sum`` launches, and the kernel counts."""
+    seconds and ``nei_sum`` and ``gather_rows`` launches, and the kernel
+    counts."""
     smiles = [r[0] for r in rows]
     reset_counts()
     out = {}
     for name, path, payload in (('reconstruct', '/reconstruct',
                                  {'smiles': smiles}),
                                 ('sample', '/sample', SAMPLE)):
-        before = nei_sum.launches
+        before = read_counts()
         t0 = time.perf_counter()
         out[name] = dict(smiles=request(port, path, payload)['smiles'],
                          seconds=time.perf_counter() - t0)
-        out[name]['launches'] = nei_sum.launches - before
+        out[name]['launches'] = nei_sum.launches - before['nei_sum']
+        out[name]['gather_launches'] = (gather_rows.launches -
+                                        before['gather_rows'])
     return out, read_counts()
 
 
@@ -311,9 +383,11 @@ def logs_of(model, vocab, latents):
     return get
 
 
-def decode_phase(model, model_cpu, vocab, rows, answers, enc, batch):
+def decode_phase(model, model_cpu, vocab, rows, answers, enc, batch,
+                 depth):
     """Hold the decoding answers to the JAX reference and count their
-    steps; returns what the phase prints."""
+    steps and launches (``depth`` rounds of the depth loop an encode);
+    returns what the phase prints."""
     with open(GOLDEN) as f:
         golden = json.load(f)
     smiles = [r[0] for r in rows]
@@ -349,12 +423,14 @@ def decode_phase(model, model_cpu, vocab, rows, answers, enc, batch):
         results, out = run()
         steps[name] = decode_steps(results)
         direct = nei_sum.launches - before
-        encode_launches = 2 if name == 'reconstruct' else 0
+        encodes = 1 if name == 'reconstruct' else 0
         if not (direct == steps[name] and answers[name]['launches'] ==
-                steps[name] + encode_launches and out == answers[name]['smiles']):
+                steps[name] + 2 * encodes and out == answers[name]['smiles']
+                and answers[name]['gather_launches'] == depth * encodes):
             raise AssertionError(
-                f'/{name}: {answers[name]["launches"]} nei_sum launches in '
-                f'the request, {direct} in the direct decode of '
+                f'/{name}: {answers[name]["launches"]} nei_sum and '
+                f'{answers[name]["gather_launches"]} gather_rows launches in '
+                f'the request, {direct} nei_sum in the direct decode of '
                 f'{steps[name]} steps (same answers: '
                 f'{out == answers[name]["smiles"]})')
     canon = [canon_smiles(s) for s in smiles]
@@ -363,10 +439,49 @@ def decode_phase(model, model_cpu, vocab, rows, answers, enc, batch):
         {f'{n}_seconds': answers[n]['seconds'] for n in answers},
         steps=steps, nei_sum_launches={n: answers[n]['launches']
                                        for n in answers},
+        gather_rows_launches={n: answers[n]['gather_launches']
+                              for n in answers},
         validity={n: sum(s is not None for s in answers[n]['smiles']) /
                   len(answers[n]['smiles']) for n in answers},
         exact_reconstruction=sum(a == b for a, b in zip(rec, canon)) / len(rec),
         differ_from_jax=differ)
+
+
+def train_phase(vocab):
+    """The training path: the golden steps, an epoch profiled, the counts
+    of the path, and the step's kernels at its shapes.  Returns what the
+    phase prints, the counts and the kernel rows."""
+    with open(TRAIN_GOLDEN) as f:
+        golden = json.load(f)
+    trainer, _ = profile_train.canonical_trainer('cuda', vocab)
+    _, batches = profile_train.hopv_batches(vocab=vocab)
+    if len(batches) != profile_train.STEPS_PER_EPOCH:
+        raise AssertionError(f'{len(batches)} HOPV batches, need '
+                             f'{profile_train.STEPS_PER_EPOCH}')
+    reset_counts()
+    steps = profile_train.golden_steps('cuda', trainer, batches)
+    bad = profile_train.check_golden(steps, golden)
+    print('train golden ' + json.dumps(dict(
+        steps=[{k: v for k, v in s.items() if k != 'update_norms'}
+               for s in steps],
+        update_deviation=profile_train.update_deviation(steps, golden),
+        failures=bad)), flush=True)
+    if bad:
+        raise AssertionError(f'training steps differ from the JAX '
+                             f'package\'s: {bad}')
+    prof = profile_train.profile_epoch(trainer, batches)
+    counts = read_counts()
+    if min(counts.values()) == 0:
+        raise AssertionError(f'a kernel never launched on the training '
+                             f'path: {counts}')
+    print('train ' + json.dumps(prof), flush=True)
+    rows = {}
+    batch = trainer.device_batch(trainer.host_batch(batches[0]))
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    for row in checked(kernel_bench.measure(
+            kernel_bench.train_cases(batch, gen), floor_ms())):
+        rows.setdefault(row['kernel'], {})[row['case']] = row
+    return prof, counts, rows
 
 
 def main() -> int:
@@ -410,13 +525,17 @@ def main() -> int:
     port = server.start(port=0).server_address[1]
     try:
         health, enc, props, counts, per_request = serve(port, rows)
-        for name, n in counts.items():
-            if n == 0:
-                raise AssertionError(f'kernel {name} never launched on the '
-                                     f'encoding path')
-        if min(per_request) < 2:
-            raise AssertionError(f'nei_sum launches per encoding request '
-                                 f'{per_request}, expected >= 2')
+        for name, k in KERNELS.items():
+            if (counts[name] > 0) != ('serve' in k['paths']):
+                raise AssertionError(f'kernel {name}: {counts[name]} '
+                                     f'launches on the encoding path')
+        # two readouts and one depth loop of ``depth`` rounds a request
+        depth = model.cfg.depthT
+        if not all(r['nei_sum'] == 2 and r['gather_rows'] == depth
+                   for r in per_request):
+            raise AssertionError(f'launches per encoding request '
+                                 f'{per_request}, expected nei_sum 2 and '
+                                 f'gather_rows {depth}')
         model_cpu, _ = load_model(CKPT, VOCAB, device='cpu')
         small = to_model_batch(tensorize(rows[:N_CPU_CHECK], vocab,
                                          common_atom_vocab), vocab.mask,
@@ -429,35 +548,42 @@ def main() -> int:
         answers, dcounts = decode_requests(port, rows)
     finally:
         server.stop()
-    for name, n in dcounts.items():
-        if n == 0:
-            raise AssertionError(f'kernel {name} never launched on the '
-                                 f'decoding path')
+    for name, k in KERNELS.items():
+        if (dcounts[name] > 0) != ('decode' in k['paths']):
+            raise AssertionError(f'kernel {name}: {dcounts[name]} launches '
+                                 f'on the decoding path')
     summary = decode_phase(model, model_cpu, vocab, rows, answers, enc,
-                           batches[0])
+                           batches[0], depth)
     print('decode ' + json.dumps(summary), flush=True)
     b120 = profile_decode(model, vocab, encode(model, batches[1])[0],
                           max_decode_step=MAX_DECODE_STEP)
     print('decode B120 ' + json.dumps(b120), flush=True)
-    counts = {name: counts[name] + dcounts[name] for name in counts}
     phase('decode', t0)
 
+    t0 = time.perf_counter()
+    prof, tcounts, train_rows = train_phase(vocab)
+    counts = {name: counts[name] + dcounts[name] + tcounts[name]
+              for name in counts}
+    phase('train', t0)
+
+    keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
+            'bound_by', 'floor_ms', 'host_ms')
     kernels = []
     for name, k in KERNELS.items():
-        r = report[name]['readout']
+        rows_of = {**report.get(name, {}), **train_rows[name]}
+        r = rows_of[k['main_case']]
         kernels.append(dict(
             name=name, route=k['route'], source=k['source'],
             replaces=k['replaces'], launches=counts[name],
-            max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
-            bound_ms=r['bound_ms'], bound_by=r['bound_by'],
-            library_ms=r['library_ms'], floor_ms=r['floor_ms'],
-            host_ms=r['host_ms'], call_sites=k['call_sites'],
-            shape=dict(h=r['h'], graph=r['graph']),
-            frontier={case: {key: row[key] for key in (
-                'h', 'graph', 'max_abs_err', 'ms', 'plain_ms', 'library_ms',
-                'bound_ms', 'bound_by', 'floor_ms', 'host_ms')}
-                for case, row in report[name].items()
-                if case.startswith('frontier')}))
+            launches_per_step=prof['kernel_launches_per_step'][name],
+            **{key: r[key] for key in keys},
+            max_abs_err_all_cases=max(x['max_abs_err']
+                                      for x in rows_of.values()),
+            call_sites=k['call_sites'], case=k['main_case'],
+            shape=r.get('shape') or dict(h=r['h'], graph=r['graph']),
+            cases={case: {key: row[key] for key in keys}
+                   for case, row in rows_of.items()
+                   if case != k['main_case']}))
     print(f'total {time.perf_counter() - t_all:.1f}s', flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)

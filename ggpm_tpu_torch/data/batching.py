@@ -1,5 +1,5 @@
-"""Fixed-shape batch assembly (copy of ``ggpm_tpu/data/batching.py``; the
-lane packing of decode plans, ``compact_plan_dict``, arrives with training).
+"""Fixed-shape batch assembly (copy of ``ggpm_tpu/data/batching.py``), and
+the host tables of the training path's backward kernels (``train_tables``).
 
 Converts host-side ``MolGraphBatch`` numpy tensors into (optionally
 bucket-padded) arrays.  Padding to a small ladder of bucket shapes bounds the
@@ -146,6 +146,137 @@ def pad_batch(mb: MolGraphBatch) -> MolGraphBatch:
     plan = pad_plan(p, dims['ts'], cand_w)
     return MolGraphBatch(smiles=mb.smiles, tree=tree, graph=graph, plan=plan,
                          homos=mb.homos, lumos=mb.lumos)
+
+
+# DecodePlan keys laid out [T, B, ...] (re-scheduled by compact_plan_dict);
+# root_clab/root_ilab/max_cls_size stay per-molecule/static.
+_PLAN_STEP_KEYS = ('active', 'xid', 'mess', 'tlab', 'has_cls', 'clab',
+                   'ilab', 'has_assm', 'assm_nc', 'assm_icls',
+                   'assm_n_icls', 'assm_nth')
+
+
+def compact_plan_dict(plan: Dict[str, np.ndarray], lane_quantum: int = 16,
+                      step_quantum: int = 32) -> Dict[str, np.ndarray]:
+    """Lane-pack a motif-family decode plan (the sequence-packing analogue).
+
+    The teacher-forcing decoder scan executes every padded ``[T, B]`` slot,
+    but DFS chain lengths vary ~3× within a batch, so slot utilisation is
+    ~0.3 at large batch (measured, scripts/step_cost_breakdown.py).  The
+    scan body is lane-agnostic — each slot is driven purely by global
+    message/node indices — and chains of different molecules are
+    independent, so the chains can be packed back-to-back onto ``L < B``
+    lanes (LPT onto the emptiest lane; within-molecule step order is
+    preserved, which is the only dependency).  ``mol_lane[t, l]`` records
+    which molecule owns each slot so the loss heads can gather their
+    per-molecule latent context.  The loss is numerically identical (same
+    terms, re-scheduled) — verified in tests/test_compact.py.
+
+    Hier-extension tables (``gstep_*``/``assm_cand*``) are dropped: the
+    motif decoder does not read them, and the hierarchical family keeps
+    unpacked plans (its scan is not lane-agnostic).
+
+    Returns a new plan dict with ``[T', L]`` step arrays and ``mol_lane``;
+    at batch 240 / HOPV15 this is ~2.5× fewer scan slots (util 0.30→0.74).
+    """
+    act = np.asarray(plan['active'])
+    T, B = act.shape
+    lens = act.sum(0).astype(np.int64)
+    total = int(lens.sum())
+    max_len = int(lens.max()) if B else 0
+
+    rup = lambda n, q: max(q, -(-int(n) // q) * q)
+    if total == 0:
+        L, T2 = max(1, min(B, lane_quantum)), step_quantum
+        dst_t = dst_l = src_t = src_b = np.zeros(0, np.int64)
+    else:
+        T_target = rup(max_len, step_quantum)
+        L = max(1, min(B, rup(-(-total // T_target), lane_quantum)))
+        order = np.argsort(-lens, kind='stable')
+        lane_end = np.zeros(L, np.int64)
+        st, sb, dt, dl = [], [], [], []
+        for m in order:
+            k = int(lens[m])
+            if k == 0:
+                continue
+            lane = int(np.argmin(lane_end))
+            s = int(lane_end[lane])
+            lane_end[lane] += k
+            st.append(np.flatnonzero(act[:, m]))
+            sb.append(np.full(k, m, np.int64))
+            dt.append(np.arange(s, s + k))
+            dl.append(np.full(k, lane, np.int64))
+        src_t, src_b = np.concatenate(st), np.concatenate(sb)
+        dst_t, dst_l = np.concatenate(dt), np.concatenate(dl)
+        T2 = rup(int(lane_end.max()), step_quantum)
+
+    def relay(a):
+        out = np.zeros((T2, L) + a.shape[2:], dtype=a.dtype)
+        out[dst_t, dst_l] = a[src_t, src_b]
+        return out
+
+    out = {k: relay(np.asarray(plan[k])) for k in _PLAN_STEP_KEYS}
+    # inactive anchor counts stay 1 (pad_plan convention)
+    out['assm_n_icls'] = np.maximum(out['assm_n_icls'], 1)
+    mol_lane = np.zeros((T2, L), np.int32)
+    mol_lane[dst_t, dst_l] = src_b
+    out['mol_lane'] = mol_lane
+    for k in ('root_clab', 'root_ilab', 'max_cls_size'):
+        out[k] = plan[k]
+    return out
+
+def frontier_table(tree: Dict[str, np.ndarray], plan: Dict[str, np.ndarray]
+                   ) -> np.ndarray:
+    """The teacher-forced decoder's frontier readout table, [T·L, A] int32
+    over the rows of its message state (``num_mess + B``).
+
+    JAX ``MotifDecoder._run_scan`` (decoder.py:265-283) reads the final
+    state under a visibility mask: slot (t, l) sums the state rows
+    ``agraph_dec[xid[t, l]]`` written at a step ``<= t`` (virtual root rows,
+    ``>= num_mess``, from step 0; rows never written, row 0 included, never).
+    The mask depends on the plan alone, so it is applied here: the masked
+    entries become the padding row 0, which is zero in the state, and the
+    readout is ``nei_sum`` over this table."""
+    agraph = np.asarray(tree['agraph_dec'])
+    num_mess = tree['fmess'].shape[0]
+    xid, mess = np.asarray(plan['xid']), np.asarray(plan['mess'])
+    T, L = mess.shape
+    B = len(plan['root_clab'])
+    never = T + 1
+    ws = np.full(num_mess + B, never, np.int64)
+    ws[num_mess:] = -1
+    valid = mess > 0
+    ws[mess[valid]] = np.broadcast_to(np.arange(T)[:, None], (T, L))[valid]
+    ag = agraph[xid]                                      # [T, L, A]
+    vis = ws[ag] <= np.arange(T)[:, None, None]
+    return np.where(vis, ag, 0).reshape(T * L, -1).astype(np.int32)
+
+
+def train_tables(batch: Dict) -> Dict:
+    """``batch`` (a ``to_model_batch`` dict, its plan packed or not) with
+    the host tables the training forward reads and its backward kernels
+    gather over (``ops.build_transpose``, row 0 left out):
+
+    * ``tree['agraph_t'/'agraph_tm']``: transpose of ``agraph`` over the
+      messages (the node readout's backward);
+    * ``tree['root_t'/'root_tm']``: of ``agraph[roots]`` (the root
+      readout's);
+    * ``plan['frontier']`` (``frontier_table``) and
+      ``plan['frontier_t'/'frontier_tm']``: the decoder's masked frontier
+      readout and its transpose over the ``num_mess + B`` state rows.
+
+    ``tree['bgraph_t'/'bgraph_tm']`` (the depth loop's) come from
+    ``level_to_dict``.  Widths are sized from the data (``k=None``)."""
+    tree, plan = dict(batch['tree']), dict(batch['plan'])
+    n_mess = tree['fmess'].shape[0]
+    roots = tree['agraph'][tree['scope'][:, 0]]
+    tree['agraph_t'], tree['agraph_tm'] = build_transpose(tree['agraph'],
+                                                          n_mess)
+    tree['root_t'], tree['root_tm'] = build_transpose(roots, n_mess)
+    fr = frontier_table(tree, plan)
+    plan['frontier'] = fr
+    plan['frontier_t'], plan['frontier_tm'] = build_transpose(
+        fr, n_mess + len(plan['root_clab']))
+    return dict(batch, tree=tree, plan=plan)
 
 
 def level_to_dict(lv: LevelTensors) -> Dict[str, np.ndarray]:

@@ -1,5 +1,7 @@
-"""The cases of the port's ``nei_sum`` kernel and the device timing that
-``chip_smoke.py`` holds it to; run alone, it times the kernel at every case.
+"""The cases of the port's kernels and the device timing that
+``chip_smoke.py`` holds them to; run alone, it times ``nei_sum`` at every
+case (``train_cases``, the training step's, and ``gather_case``, the
+depth loop's, are measured by ``chip_smoke.py``).
 
     python -m ggpm_tpu_torch.kernel_bench [--out PATH]
 
@@ -37,7 +39,8 @@ from .data.dataset import prune_to_vocab, read_csv_data
 from .graph.mol_graph import tensorize
 from .graph.vocab import common_atom_vocab, load_vocab_file
 from .ops import graph_ops
-from .ops.nei_sum import nei_sum
+from .ops.gather_rows import gather_rows
+from .ops.nei_sum import nei_sum, transpose_sum
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = os.path.join(_ROOT, 'runs', 'QUALITY_hopv.json.vocab.txt')
@@ -236,6 +239,141 @@ def measure_cases(tree: dict, floor: float, wrapper: Callable = nei_sum,
             device_ms(lambda f=f: f(h, g))
             for f in (wrapper, graph_ops.nei_sum, library_nei_sum))
         yield case, h, g, row
+
+
+def in_order_nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
+    """``nei_sum`` summed in the kernel's order, a = 0..A-1 (zeros for
+    A = 0)."""
+    if graph.shape[1] == 0:
+        return h.new_zeros((graph.shape[0], h.shape[1]))
+    out = h[graph[:, 0].long()].clone()
+    for a in range(1, graph.shape[1]):
+        out += h[graph[:, a].long()]
+    return out
+
+
+def in_order_transpose(g: torch.Tensor, t_idx: torch.Tensor,
+                       t_mask: torch.Tensor, div: int) -> torch.Tensor:
+    """The transpose summed in the kernel's order, k = 0..K-1."""
+    out = t_mask[:, :1] * g[(t_idx[:, 0] // div).long()]
+    for k in range(1, t_idx.shape[1]):
+        out += t_mask[:, k:k + 1] * g[(t_idx[:, k] // div).long()]
+    return out
+
+
+def library_gather(src: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
+    """The one PyTorch call that computes the row gather (a yardstick)."""
+    return torch.index_select(src, 0, graph.view(-1)).view(
+        *graph.shape, src.shape[1])
+
+
+def library_transpose(rows: torch.Tensor, graph: torch.Tensor, m: int
+                      ) -> Callable[[], torch.Tensor]:
+    """The transpose as ``index_add_`` over the forward table ``graph``
+    (a yardstick; it also sums into row 0, which the transpose leaves
+    out): ``rows`` holds one row per entry of ``graph``, so for
+    ``nei_sum``'s backward the cotangent is expanded over A beforehand,
+    outside the timed call."""
+    flat = graph.reshape(-1)
+    return lambda: torch.zeros((m, rows.shape[1]), device=rows.device
+                               ).index_add_(0, flat, rows)
+
+
+def gather_case(name: str, tree: dict, gen: torch.Generator,
+                hidden: int = 250) -> dict:
+    """The depth loop's row gather of ``tree`` (a serve tree of numpy
+    arrays or a device batch's), ``gather_rows`` of [h | h·Kf | c] at
+    width 3 ``hidden`` by ``bgraph``, as a case of ``measure``; the plain
+    copy is its in-order reference.  Values come from ``gen``."""
+    src = random_table(gen, tree['fmess'].shape[0], 3 * hidden)
+    bg = torch.as_tensor(tree['bgraph'], device=gen.device)
+    return dict(
+        kernel='gather_rows', case=name, shape=dict(
+            src=list(src.shape), graph=list(bg.shape)),
+        call=lambda: gather_rows(src, bg),
+        plain=lambda: graph_ops.gather_nd(src, bg), exact=None,
+        library=lambda: library_gather(src, bg),
+        bytes=4 * (torch.unique(bg).numel() * src.shape[1] + bg.numel() +
+                   bg.numel() * src.shape[1]), ops=0)
+
+
+def train_cases(batch: dict, gen: torch.Generator, hidden: int = 250
+                ) -> List[dict]:
+    """The kernels' calls in one training step of a device batch
+    (``Trainer.device_batch``): the depth loop's row gather (forward
+    ``gather_rows`` at width 3H, backward ``transpose_sum`` with div 1),
+    the backward of the three readouts (``transpose_sum`` at width H, div
+    A) and the decoder's masked frontier readout (``nei_sum``), at the
+    canonical width ``hidden``.  Each case
+    holds the kernel's call, its plain version, its in-order reference (the
+    plain version itself for the copy), the library call, and the bytes
+    the function must move.  Values come from ``gen``."""
+    tree, plan = batch['tree'], batch['plan']
+    n_mess = tree['fmess'].shape[0]
+    H = hidden
+    dev = gen.device
+    bg = tree['bgraph']
+    cases = [gather_case('depth-gather', tree, gen, H)]
+    n_roots = tree['scope'].shape[0]
+    roots = tree['agraph'][tree['scope'][:, 0].long()]
+    sites = (('depth-gather-bwd', bg, tree['bgraph_t'], tree['bgraph_tm'],
+              3 * H, 1, n_mess),
+             ('readout-bwd', tree['agraph'], tree['agraph_t'],
+              tree['agraph_tm'], H, tree['agraph'].shape[1], n_mess),
+             ('root-bwd', roots, tree['root_t'], tree['root_tm'], H,
+              roots.shape[1], n_mess),
+             ('frontier-bwd', plan['frontier'], plan['frontier_t'],
+              plan['frontier_tm'], H, plan['frontier'].shape[1],
+              n_mess + n_roots))
+    for name, graph, t_idx, t_mask, width, div, m in sites:
+        rows = graph.numel() if div == 1 else graph.shape[0]
+        g = torch.rand((rows, width), generator=gen, device=dev) * 2 - 1
+        expanded = (g if div == 1 else g[:, None, :].expand(
+            -1, div, -1).reshape(-1, width)).contiguous()
+        nnz = int(t_mask.sum().item())
+        read = torch.unique((t_idx // div)[t_mask > 0]).numel()
+        cases.append(dict(
+            kernel='transpose_sum', case=name, shape=dict(
+                g=list(g.shape), t_idx=list(t_idx.shape), div=div),
+            call=lambda g=g, t=t_idx, mk=t_mask, d=div: transpose_sum(
+                g, t, mk, d),
+            plain=lambda g=g, t=t_idx, mk=t_mask, d=div:
+                graph_ops.transpose_sum(g, t, mk, d),
+            exact=lambda g=g, t=t_idx, mk=t_mask, d=div: in_order_transpose(
+                g, t, mk, d),
+            library=library_transpose(expanded, graph, m),
+            bytes=4 * (read * width + 2 * t_idx.numel() +
+                       t_idx.shape[0] * width), ops=nnz * width))
+    fr = plan['frontier']
+    h = random_table(gen, n_mess + n_roots, H)
+    cases.append(dict(
+        kernel='nei_sum', case='frontier-train', shape=dict(
+            h=list(h.shape), graph=list(fr.shape)),
+        call=lambda: nei_sum(h, fr), plain=lambda: graph_ops.nei_sum(h, fr),
+        exact=lambda: in_order_nei_sum(h, fr),
+        library=lambda: library_nei_sum(h, fr),
+        bytes=nei_sum_bytes(h, fr), ops=nei_sum_ops(h, fr)))
+    return cases
+
+
+def measure(cases: Sequence[dict], floor: float) -> Iterator[dict]:
+    """Each case (``train_cases``, ``gather_case``) on the card: max abs
+    error against the plain version, whether it equals the in-order sum
+    bit for bit (the gather: the plain copy), device ms of the kernel, the
+    plain version and the library call, and the bound."""
+    for c in cases:
+        out, ref = c['call'](), c['plain']()
+        exact = (c['exact'] or c['plain'])()
+        bound_by, bound_ms = bound(c['bytes'], c['ops'])
+        row = dict(kernel=c['kernel'], case=c['case'], shape=c['shape'],
+                   bytes=c['bytes'], bound_ms=bound_ms, bound_by=bound_by,
+                   floor_ms=floor,
+                   max_abs_err=(out - ref).abs().max().item(),
+                   bit_exact=bool(torch.equal(out, exact)))
+        row['ms'], row['plain_ms'], row['library_ms'] = (
+            device_ms(f) for f in (c['call'], c['plain'], c['library']))
+        row['host_ms'] = eager_ms(c['call'])
+        yield row
 
 
 def main(argv=None) -> List[dict]:

@@ -1,5 +1,5 @@
 """Property-regression heads (counterpart of ``ggpm_tpu/models/heads.py``,
-prediction only; the training losses arrive with training).
+prediction only; the property losses arrive with prop-opt training).
 
 Reference: ggpm/property_optimizer.py:5-67.
 """

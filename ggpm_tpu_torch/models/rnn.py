@@ -1,7 +1,7 @@
 """Message-passing LSTM over padded edge-message tables (counterpart of
-``ggpm_tpu/models/rnn.py:MPNLSTMCell``: the dense forward and the decoder's
-one-step ``cell``; the GRU cell and the teacher-forced split-step API
-arrive with the hier family and training).
+``ggpm_tpu/models/rnn.py:MPNLSTMCell``: the dense forward, the decoder's
+one-step ``cell`` and the teacher-forced split-step API; the GRU cell
+arrives with the hier family).
 
 State layout: ``h`` and ``c`` are ``[num_messages, hidden]`` buffers whose
 row 0 is the all-zero padding message.
@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import gather_nd, zero_row0_
+from ..ops import gather_nd_t, gather_rows, zero_row0, zero_row0_
 
 
 class MPNLSTMCell(nn.Module):
@@ -61,15 +61,56 @@ class MPNLSTMCell(nn.Module):
         c = i * u + (f * c_nei).sum(dim=-2)
         return o * torch.tanh(c), c
 
-    def forward(self, fmess: torch.Tensor,
-                bgraph: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    # -- split-step API for the teacher-forced decoder scan (reference
+    # rnn.py:228-266): the same math as ``cell`` --------------------------
+    def x_proj(self, x: torch.Tensor) -> torch.Tensor:
+        """Loop-invariant gate terms xi | xo | xu | xf ([..., 4H]), biases
+        included."""
+        in_dim = x.shape[-1]
+        return torch.cat([F.linear(x, m.weight[:, :in_dim], m.bias)
+                          for m in (self.W_i, self.W_o, self.W, self.W_f)],
+                         dim=-1)
+
+    def k_h(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """h-side kernels: (K_iou stacked [H, 3H], kf [H, H])."""
+        H = self.hidden_size
+        kiou = torch.cat([m.weight[:, -H:] for m in (self.W_i, self.W_o,
+                                                      self.W)]).t()
+        return kiou, self.W_f.weight[:, -H:].t()
+
+    @staticmethod
+    def step(xp: torch.Tensor, state_nei, ks) -> Tuple[torch.Tensor, ...]:
+        """One cell application from hoisted x terms: ``xp`` [R, 4H] from
+        ``x_proj``, ``state_nei = (h_nei, c_nei)`` each [R, A, H], ``ks``
+        from ``k_h``."""
+        kiou, kf = ks
+        h_nei, c_nei = state_nei
+        xi, xo, xu, xf = xp.chunk(4, dim=-1)
+        gi, go, gu = (h_nei.sum(dim=-2) @ kiou).chunk(3, dim=-1)
+        i = torch.sigmoid(xi + gi)
+        o = torch.sigmoid(xo + go)
+        u = torch.tanh(xu + gu)
+        f = torch.sigmoid(xf[..., None, :] + h_nei @ kf)
+        c = i * u + (f * c_nei).sum(dim=-2)
+        return o * torch.tanh(c), c
+
+    def forward(self, fmess: torch.Tensor, bgraph: torch.Tensor,
+                bt=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``depth`` rounds over every message; returns ``(h, c)``.
 
         The x-side projections of every gate are loop-invariant and are
         computed once (biases live there); each round projects ``h`` by the
         forget gate's h-side kernel and gathers ``[h | h·Kf | c]`` by
         ``bgraph`` in one gather, so the per-neighbour forget gate costs an
-        [E, H]×[H, H] product instead of an [E, A, in+H]×[in+H, H] one."""
+        [E, H]×[H, H] product instead of an [E, A, in+H]×[in+H, H] one.
+
+        The gather is the row-gather kernel, ``gather_rows``.  With
+        ``bt``, the host-built transpose ``(t_idx, t_mask)`` of ``bgraph``
+        (``bgraph_t``/``bgraph_tm`` of the batch), it is ``gather_nd_t``:
+        that kernel forward and a gather over the transpose backward
+        (reference rnn.py:23-44); without it the loop has no backward on
+        the card.  Row 0 is zeroed out of place while autograd records, in
+        place otherwise."""
         in_dim = fmess.shape[-1]
         H = self.hidden_size
         xi, xo, xu, xf = (F.linear(fmess, m.weight[:, :in_dim], m.bias)
@@ -79,10 +120,16 @@ class MPNLSTMCell(nn.Module):
                            for m in (self.W_i, self.W_o, self.W)]).t()
         k_f = self.W_f.weight[:, in_dim:].t()
 
+        if bt is None:
+            gather = lambda v: gather_rows(v, bgraph)
+        else:
+            gather = lambda v: gather_nd_t(v, bgraph, *bt)
+        zero = zero_row0 if torch.is_grad_enabled() else zero_row0_
+
         h = fmess.new_zeros(fmess.shape[0], H)
         c = torch.zeros_like(h)
         for _ in range(self.depth):
-            g = gather_nd(torch.cat([h, h @ k_f, c], dim=-1), bgraph)
+            g = gather(torch.cat([h, h @ k_f, c], dim=-1))
             h_nei, fh_nei, c_nei = g.split(H, dim=-1)
             h_sum = h_nei.sum(dim=1)
             gi, go, gu = (h_sum @ k_iou).split(H, dim=-1)
@@ -91,7 +138,6 @@ class MPNLSTMCell(nn.Module):
             u = torch.tanh(xu + gu)
             f = torch.sigmoid(xf + fh_nei)
             c = i * u + (f * c_nei).sum(dim=1)
-            h = o * torch.tanh(c)
-            zero_row0_(h)
-            zero_row0_(c)
+            h = zero(o * torch.tanh(c))
+            c = zero(c)
         return h, c

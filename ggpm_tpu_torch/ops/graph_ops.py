@@ -25,6 +25,32 @@ def nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
     return h[graph].sum(dim=-2)
 
 
+def transpose_sum(g: torch.Tensor, t_idx: torch.Tensor, t_mask: torch.Tensor,
+                  div: int) -> torch.Tensor:
+    """``out[m] = Σ_k t_mask[m, k] · g[t_idx[m, k] // div]``: the backward
+    of ``nei_sum`` (``div`` = A) and of the row gather (``div`` = 1) over a
+    transpose table from ``build_transpose`` (JAX ``_nei_sum_t_bwd`` and
+    ``_gather_nd_t_bwd``).  The plain version of the
+    ``ops.nei_sum.transpose_sum`` kernel."""
+    return (g[t_idx // div] * t_mask[..., None]).sum(dim=-2)
+
+
+def scatter_rows(buffer: torch.Tensor, index: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """``buffer`` with ``rows`` written at ``index`` and the padding row
+    zeroed, out of place (``index_scatter`` semantics, JAX
+    ``graph_ops.scatter_rows``).  Duplicate indices may only occur at the
+    padding slot 0, which is zeroed afterwards."""
+    return zero_row0(buffer.index_put((index.long(),), rows))
+
+
+def zero_row0(h: torch.Tensor) -> torch.Tensor:
+    """``h`` with its padding row zeroed, out of place, so that autograd
+    may differentiate through it: its backward zeroes row 0 of the
+    cotangent, as JAX's ``h.at[0].set(0.0)`` does."""
+    return torch.cat([h.new_zeros((1,) + h.shape[1:]), h[1:]])
+
+
 def zero_row0_(h: torch.Tensor) -> torch.Tensor:
     """Zero the padding row of ``h`` in place and return ``h``.  Callers
     pass a tensor they have just computed, so no other view sees the
@@ -41,9 +67,8 @@ def build_transpose(graph: np.ndarray, num_src: int, k: int = None):
     ``n * A + a`` with ``graph[n, a] == m`` (row 0 excluded), zero-padded to
     width ``k``; ``t_mask`` marks the real entries.  For ``bgraph`` the
     multiplicity of message m is deg(dst(m)) - 1 < A, so ``k=A`` is a
-    static bound; pass ``k=None`` to size from the data.  The training
-    slice turns the backward of the depth loop's gather into a gather over
-    this table (ROADMAP B2).
+    static bound; pass ``k=None`` to size from the data.  The backward
+    kernels of ``nei_sum_t`` and ``gather_nd_t`` gather over this table.
     """
     g = np.asarray(graph)
     flat = g.ravel().astype(np.int64)

@@ -1,17 +1,23 @@
-"""The neighbour gather-sum kernel: ``out[n] = Σ_a h[graph[n, a]]``.
+"""The neighbour gather-sum kernel: ``out[n] = Σ_a h[graph[n, a]]``, and
+its transpose, which is its backward.
 
 Port of the Pallas TPU kernel ``ggpm_tpu/ops/pallas_gather.py:_kernel``
 (ROADMAP B1) as hand-written CUDA for sm_90a, ``csrc/nei_sum.cu``; the
 source says how it is laid out and what bounds it.  The encoder calls it at
-both of its readouts (the node readout over ``agraph`` and the root readout).
+both of its readouts (the node readout over ``agraph`` and the root readout),
+the decoder at its frontier readouts (decode steps and the teacher-forced
+scan).  ``transpose_sum`` launches the same source's transpose
+(``out[m] = Σ_k mask[m, k] · g[t_idx[m, k] // div]``), and ``nei_sum_t``
+is ``nei_sum`` with that as its backward, an autograd Function.
 
 ``plan`` chooses the launch (kernel kind, load width, threads per row, rows
 per block, grid) from the shapes alone, in plain Python, so the CPU tests
 reach it.  ``nei_sum`` launches the kernel for CUDA tensors and raises if
 it cannot; it never falls back.  For CPU tensors it computes the plain
 version, ``graph_ops.nei_sum``.  ``nei_sum.launches`` counts kernel
-launches.  ``device_plan`` and ``launch`` run a given plan, so a
-measurement can compare the kinds on the same inputs.
+launches (``transpose_sum.launches`` the transpose's).  ``device_plan``
+and ``launch`` run a given plan, so a measurement can compare the kinds on
+the same inputs.
 """
 
 from __future__ import annotations
@@ -84,32 +90,37 @@ def plan(n: int, a: int, hdim: int, vec: int, sms: int,
     return Plan(kind, vec, a_tmpl, tpr, rpb, grid)
 
 
+_PLAN_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
+
+
 def _lib() -> ctypes.CDLL:
     lib = library('nei_sum')
     fn = lib.ggpm_nei_sum_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + _PLAN_ARGS
         fn.restype = ctypes.c_int
+        tr = lib.ggpm_nei_sum_t_f32
+        tr.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + _PLAN_ARGS
+        tr.restype = ctypes.c_int
         occ = lib.ggpm_nei_sum_blocks_per_sm
-        occ.argtypes = [ctypes.c_int] * 4
+        occ.argtypes = [ctypes.c_int] * 5
         occ.restype = ctypes.c_int
     return lib
 
 
-def _check(h: torch.Tensor, graph: torch.Tensor) -> None:
+def _check(h: torch.Tensor, graph: torch.Tensor, name: str = 'nei_sum'
+           ) -> None:
     if h.device != graph.device:
-        raise ValueError(f'nei_sum: h on {h.device}, graph on {graph.device}')
+        raise ValueError(f'{name}: h on {h.device}, graph on {graph.device}')
     if h.dtype != torch.float32 or graph.dtype != torch.int32:
-        raise TypeError(f'nei_sum takes float32 h and int32 graph, '
+        raise TypeError(f'{name} takes float32 h and int32 graph, '
                         f'got {h.dtype} and {graph.dtype}')
     if h.dim() != 2 or graph.dim() != 2:
-        raise ValueError(f'nei_sum takes h [M, H] and graph [N, A], got '
+        raise ValueError(f'{name} takes h [M, H] and graph [N, A], got '
                          f'{tuple(h.shape)} and {tuple(graph.shape)}')
     if not (h.is_contiguous() and graph.is_contiguous()):
-        raise ValueError('nei_sum takes contiguous h and graph')
+        raise ValueError(f'{name} takes contiguous h and graph')
 
 
 def vec_width(h: torch.Tensor, out: torch.Tensor) -> int:
@@ -124,23 +135,24 @@ def vec_width(h: torch.Tensor, out: torch.Tensor) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def _device_plan(device: int, n: int, a: int, hdim: int, vec: int,
-                 kind: Optional[str]) -> Plan:
+                 kind: Optional[str], transpose: bool) -> Plan:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     a_tmpl = a if 1 <= a <= MAX_A_TEMPLATE else 0
 
     def resident(k, threads):
         with torch.cuda.device(device):
-            return _lib().ggpm_nei_sum_blocks_per_sm(KINDS.index(k), vec,
-                                                     a_tmpl, threads)
+            return _lib().ggpm_nei_sum_blocks_per_sm(
+                int(transpose), KINDS.index(k), vec, a_tmpl, threads)
     return plan(n, a, hdim, vec, sms, resident, kind)
 
 
 def device_plan(h: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
-                kind: Optional[str] = None) -> Plan:
-    """``plan`` for these CUDA tensors on their card (``kind`` as there)."""
+                kind: Optional[str] = None, transpose: bool = False) -> Plan:
+    """``plan`` for these CUDA tensors on their card (``kind`` as there);
+    ``transpose`` plans the transpose, ``graph`` then being ``t_idx``."""
     n, a = graph.shape
     return _device_plan(h.device.index, n, a, h.shape[1], vec_width(h, out),
-                        kind)
+                        kind, transpose)
 
 
 def launch(h: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
@@ -162,12 +174,17 @@ def launch(h: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
 
 def nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
     """``h[graph].sum(1)`` for f32 ``h`` [M, H] and int32 ``graph`` [N, A]
-    whose entries lie in [0, M); row 0 of ``h`` is the zero padding row."""
+    whose entries lie in [0, M); row 0 of ``h`` is the zero padding row.
+    The kernel has no backward of its own: where ``h`` needs a gradient on
+    the card, call ``nei_sum_t`` with the table's transpose."""
     _check(h, graph)
     if h.device.type == 'cpu':
         return graph_ops.nei_sum(h, graph)
     if h.device.type != 'cuda':
         raise ValueError(f'nei_sum: no kernel for device {h.device}')
+    if h.requires_grad and torch.is_grad_enabled():
+        raise ValueError('nei_sum: h needs a gradient; pass the transpose '
+                         'of graph to nei_sum_t')
     out = torch.empty((graph.shape[0], h.shape[1]), dtype=h.dtype,
                       device=h.device)
     if graph.shape[0] == 0:
@@ -176,3 +193,83 @@ def nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
 
 
 nei_sum.launches = 0
+
+
+def launch_transpose(g: torch.Tensor, t_idx: torch.Tensor,
+                     t_mask: torch.Tensor, div: int, out: torch.Tensor,
+                     p: Plan) -> torch.Tensor:
+    """Launch the transpose under plan ``p`` (from ``device_plan(...,
+    transpose=True)`` of the same tensors) into ``out``; raises if the
+    launch fails."""
+    n, k = t_idx.shape
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = _lib().ggpm_nei_sum_t_f32(
+            g.data_ptr(), t_idx.data_ptr(), t_mask.data_ptr(), out.data_ptr(),
+            n, k, div, g.shape[1] // p.vec, KINDS.index(p.kind), p.vec,
+            p.a_tmpl, p.tpr, p.rpb, p.grid, stream)
+    if err:
+        raise RuntimeError(f'nei_sum transpose launch failed: CUDA error {err}')
+    transpose_sum.launches += 1
+    return out
+
+
+def transpose_sum(g: torch.Tensor, t_idx: torch.Tensor, t_mask: torch.Tensor,
+                  div: int) -> torch.Tensor:
+    """``out[m] = Σ_k t_mask[m, k] · g[t_idx[m, k] // div]`` for f32 ``g``
+    [R, W], int32 ``t_idx`` and f32 ``t_mask`` [M, K] (0 or 1, from
+    ``graph_ops.build_transpose``), with every ``t_idx // div`` in [0, R).
+    The backward of ``nei_sum`` (``div`` = A) and of the row gather
+    (``div`` = 1, ``g`` the flattened cotangent)."""
+    _check(g, t_idx, 'transpose_sum')
+    if t_mask.shape != t_idx.shape or t_mask.dtype != torch.float32 or \
+            t_mask.device != g.device or not t_mask.is_contiguous():
+        raise ValueError('transpose_sum takes a contiguous f32 t_mask of '
+                         't_idx\'s shape on its device')
+    if div < 1:
+        raise ValueError(f'transpose_sum: div {div}')
+    if g.device.type == 'cpu':
+        return graph_ops.transpose_sum(g, t_idx, t_mask, div)
+    if g.device.type != 'cuda':
+        raise ValueError(f'transpose_sum: no kernel for device {g.device}')
+    out = torch.empty((t_idx.shape[0], g.shape[1]), dtype=g.dtype,
+                      device=g.device)
+    if t_idx.shape[0] == 0:
+        return out
+    return launch_transpose(g, t_idx, t_mask, div, out,
+                            device_plan(g, t_idx, out, transpose=True))
+
+
+transpose_sum.launches = 0
+
+
+class _NeiSumT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, graph, t_idx, t_mask):
+        ctx.save_for_backward(t_idx, t_mask)
+        ctx.a = graph.shape[1]
+        return nei_sum(h, graph)
+
+    @staticmethod
+    def backward(ctx, gout):
+        t_idx, t_mask = ctx.saved_tensors
+        return (transpose_sum(gout.contiguous(), t_idx, t_mask, ctx.a),
+                None, None, None)
+
+
+def nei_sum_t(h: torch.Tensor, graph: torch.Tensor, t_idx: torch.Tensor,
+              t_mask: torch.Tensor) -> torch.Tensor:
+    """``nei_sum`` whose backward is ``transpose_sum`` over ``(t_idx,
+    t_mask) = build_transpose(graph, len(h))`` with ``div`` = A (counterpart
+    of ``ggpm_tpu/ops/graph_ops.py:nei_sum_t``): a gather, not a
+    scatter-add.
+
+    The table leaves out every use of row 0, so the gradient of ``h[0]`` is
+    zero.  That is exact where the caller keeps ``h[0]`` at zero by
+    construction, because then its cotangent is dead: it flows only into
+    the ``zero_row0`` that made it (whose backward kills it) or into a
+    constant zero buffer.  The node and root readouts of the encoder read
+    the depth loop's ``h``, zeroed by ``zero_row0`` every round; the
+    decoder's teacher-forced readout reads its message state, whose row 0
+    starts as a constant zero and is written only with zeros."""
+    return _NeiSumT.apply(h, graph, t_idx, t_mask)

@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-versions.  Needs an NVIDIA GPU and ``nvcc``; on the card, from the root of
+versions: ``nei_sum`` (B1), its transpose ``transpose_sum`` and the row
+gather ``gather_rows``, and the autograd Functions built from them.  Needs an NVIDIA GPU and ``nvcc``; on the card, from the root of
 the repo:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
@@ -11,7 +12,8 @@ does not have.)  Without a card every test skips, decided inside the
 ``nei_sum`` sums its A neighbours in the order a = 0..A-1 in fp32, so it is
 held bit for bit against that sum written out in PyTorch, and within 1e-5
 against ``graph_ops.nei_sum`` (``h[graph].sum(1)``, whose reduction order is
-PyTorch's).
+PyTorch's).  The transpose likewise, in the order k = 0..K-1 of its table;
+the row gather is a copy, held bit for bit.
 """
 
 import dataclasses
@@ -19,8 +21,12 @@ import dataclasses
 import pytest
 import torch
 
+from ggpm_tpu_torch.kernel_bench import in_order_nei_sum, in_order_transpose
 from ggpm_tpu_torch.ops import graph_ops
-from ggpm_tpu_torch.ops.nei_sum import KINDS, device_plan, launch, nei_sum
+from ggpm_tpu_torch.ops.gather_rows import gather_nd_t, gather_rows
+from ggpm_tpu_torch.ops.nei_sum import (KINDS, device_plan, launch,
+                                        launch_transpose, nei_sum, nei_sum_t,
+                                        transpose_sum)
 
 pytestmark = pytest.mark.cuda
 
@@ -60,15 +66,6 @@ def _inputs(m, hdim, n, a, offset, device, seed=0):
     return h, graph
 
 
-def _in_order(h, graph):
-    out = torch.zeros((graph.shape[0], h.shape[1]), device=h.device)
-    if graph.shape[1]:
-        out = h[graph[:, 0].long()].clone()
-    for j in range(1, graph.shape[1]):
-        out += h[graph[:, j].long()]
-    return out
-
-
 def _run(h, graph, kind):
     """The wrapper's own plan (``kind`` None), or ``kind`` forced."""
     if kind is None:
@@ -91,7 +88,7 @@ def test_nei_sum_kernel_matches_plain(cuda, shape, kind):
     torch.cuda.synchronize()
     assert nei_sum.launches == before + (graph.shape[0] > 0)
     assert out.shape == (graph.shape[0], h.shape[1])
-    assert torch.equal(out, _in_order(h, graph))
+    assert torch.equal(out, in_order_nei_sum(h, graph))
     torch.testing.assert_close(out, graph_ops.nei_sum(h, graph), rtol=0,
                                atol=ATOL)
 
@@ -110,3 +107,113 @@ def test_nei_sum_on_cuda_launches_or_raises(cuda):
     with pytest.raises(RuntimeError):
         launch(h, graph, out, bad)
     assert nei_sum.launches == before + 1
+
+
+# -- the transpose (nei_sum's backward) and the row gather ---------------
+
+# (M source rows, W, N rows of the forward table, A, div is A?): the
+# training step's B1 backward (W 250, div A) at the node, root and frontier
+# tables' widths, and the depth loop's gather backward (W 750, div 1) over
+# bgraph's widths; A = 12 takes the generic path.  K comes from the data.
+T_SHAPES = [(m, w, n, a, by_a) for a in (1, 4, 6, 8, 12)
+            for (m, w, n, by_a) in ((768, 250, 384, True),
+                                    (768, 750, 768, False),
+                                    (2001, 250, 1501, True),
+                                    (2001, 750, 3001, False))]
+
+
+def _transpose_inputs(m, w, n, a, by_a, device, seed=1):
+    """A forward table over ``m`` rows, its transpose, and a cotangent ``g``
+    of the forward's output: [n, w] for nei_sum (div A), [n·a, w] for the
+    row gather (div 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    graph = torch.randint(0, m, (n, a), generator=gen, device=device,
+                          dtype=torch.int32)
+    graph[torch.rand((n, a), generator=gen, device=device) < 0.25] = 0
+    t_idx, t_mask = graph_ops.build_transpose(graph.cpu().numpy(), m)
+    rows = n if by_a else n * a
+    g = torch.rand((rows, w), generator=gen, device=device) * 2 - 1
+    return (graph, torch.as_tensor(t_idx, device=device),
+            torch.as_tensor(t_mask, device=device), g, a if by_a else 1)
+
+
+@pytest.mark.parametrize('kind', [None, *KINDS])
+@pytest.mark.parametrize('shape', T_SHAPES, ids=str)
+def test_transpose_kernel_matches_plain(cuda, shape, kind):
+    _, t_idx, t_mask, g, div = _transpose_inputs(*shape, device=cuda)
+    before = transpose_sum.launches
+    if kind is None:
+        out = transpose_sum(g, t_idx, t_mask, div)
+    else:
+        out = torch.empty((t_idx.shape[0], g.shape[1]), device=cuda)
+        launch_transpose(g, t_idx, t_mask, div, out, device_plan(
+            g, t_idx, out, kind, transpose=True))
+    torch.cuda.synchronize()
+    assert transpose_sum.launches == before + 1
+    assert torch.equal(out, in_order_transpose(g, t_idx, t_mask, div))
+    torch.testing.assert_close(
+        out, graph_ops.transpose_sum(g, t_idx, t_mask, div), rtol=0,
+        atol=ATOL)
+
+
+@pytest.mark.parametrize('shape', [(768, 750, 768, 6), (1577, 750, 1577, 5),
+                                   (300, 250, 853, 6), (301, 251, 77, 3),
+                                   (64, 1, 10, 2), (5, 750, 0, 6)], ids=str)
+def test_gather_rows_kernel_is_a_copy(cuda, shape):
+    m, w, n, a = shape
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    src = torch.rand((m, w), generator=gen, device=cuda)
+    graph = torch.randint(0, m, (n, a), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    before = gather_rows.launches
+    out = gather_rows(src, graph)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + (n > 0)
+    assert out.shape == (n, a, w)
+    assert torch.equal(out, src[graph.long()])
+
+
+@pytest.mark.parametrize('op', ['nei_sum_t', 'gather_nd_t'])
+@pytest.mark.parametrize('shape', [(768, 250, 384, 6), (768, 750, 768, 4),
+                                   (2001, 250, 900, 12)], ids=str)
+def test_autograd_kernels_match_index_add(cuda, op, shape):
+    """The autograd Functions on the card: forward equal to the plain
+    version, gradient within 1e-5 of the exact one, ``index_add_`` of the
+    cotangent in float64 over the forward table with row 0 left out (row
+    0 of h is zero at every call site, and its cotangent dead)."""
+    m, w, n, a = shape
+    graph, t_idx, t_mask, _, _ = _transpose_inputs(m, w, n, a, True, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    h = torch.rand((m, w), generator=gen, device=cuda)
+    h[0] = 0
+    x = h.clone().requires_grad_()
+    fn = nei_sum_t if op == 'nei_sum_t' else gather_nd_t
+    counts = (nei_sum.launches, gather_rows.launches, transpose_sum.launches)
+    out = fn(x, graph, t_idx, t_mask)
+    cot = torch.rand(out.shape, generator=gen, device=cuda) * 2 - 1
+    out.backward(cot)
+    torch.cuda.synchronize()
+    fwd = 0 if op == 'nei_sum_t' else 1
+    assert nei_sum.launches - counts[0] == 1 - fwd
+    assert gather_rows.launches - counts[1] == fwd
+    assert transpose_sum.launches - counts[2] == 1
+    plain = h[graph.long()]
+    assert torch.equal(out.detach(),
+                       plain if fwd else in_order_nei_sum(h, graph))
+    src = (cot[:, None, :].expand(n, a, w) if op == 'nei_sum_t' else cot)
+    want = torch.zeros((m, w), dtype=torch.float64, device=cuda).index_add_(
+        0, graph.reshape(-1).long(), src.reshape(-1, w).double())
+    want[0] = 0
+    torch.testing.assert_close(x.grad.double(), want, rtol=0, atol=ATOL)
+
+
+def test_kernels_refuse_a_gradient_without_the_transpose(cuda):
+    h = torch.rand((50, 250), device=cuda, requires_grad=True)
+    graph = torch.randint(0, 50, (10, 3), device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError, match='nei_sum_t'):
+        nei_sum(h, graph)
+    with pytest.raises(ValueError, match='gather_nd_t'):
+        gather_rows(h, graph)
+    with torch.no_grad():
+        nei_sum(h, graph)
+        gather_rows(h, graph)

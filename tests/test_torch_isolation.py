@@ -72,7 +72,9 @@ def test_source_scan_pattern():
 
 def test_port_modules_are_all_scanned():
     names = {m.name for m in pkgutil.walk_packages([PORT])}
-    assert {'bridge', 'serve', 'ops', 'models', 'graph', 'chem'} <= names
+    assert {'bridge', 'serve', 'ops', 'models', 'graph', 'chem', 'train',
+            'cli', 'configs', 'profile_train', 'profile_serve',
+            'kernel_bench'} <= names
 
 
 def test_chip_smoke_fails_without_cuda(capsys):
