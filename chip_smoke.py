@@ -171,7 +171,7 @@ KERNELS = {
                     'ggpm_tpu_torch/models/decoder.py:174 (_run_scan, the '
                     'teacher-forced frontier)']),
     'transpose_sum': dict(
-        route='cuda', source='ggpm_tpu_torch/csrc/nei_sum.cu',
+        route='cuda', source='ggpm_tpu_torch/csrc/transpose_sum.cu',
         replaces='ggpm_tpu/ops/graph_ops.py:111 (_nei_sum_t_bwd) and :134 '
                  '(_gather_nd_t_bwd): XLA gathers, no Pallas kernel; the '
                  'backward of B1, ggpm_tpu/ops/pallas_gather.py:33',

@@ -1,29 +1,10 @@
-// Neighbour gather-sum for Hopper (sm_90a), and its transpose:
+// Neighbour gather-sum for Hopper (sm_90a):
 //
-//     out[n, :] = sum_{a < A} h[graph[n, a], :]                  (forward)
-//     out[m, :] = sum_{k < K} mask[m, k] * g[t_idx[m, k] / div, :]  (transpose)
+//     out[n, :] = sum_{a < A} h[graph[n, a], :]
 //
-// Forward: h is f32 [M, H], graph int32 [N, A], out f32 [N, H].  Row 0 of h
-// is the zero padding row, so padded slots of graph (index 0) add nothing
-// and need no mask.  The sum runs in the fixed order a = 0..A-1 in fp32
-// registers.
-//
-// Transpose (template flag kT): the backward of the forward, and of the
-// depth loop's row gather, over the host-built transpose table of the
-// forward's index table (ggpm_tpu_torch/ops/graph_ops.py:build_transpose):
-// t_idx [M, K] lists the flat positions n * A + a that read row m, t_mask
-// [M, K] marks the real entries (0 or 1).  For nei_sum's backward g is the
-// output's cotangent [N, H] and div = A; for the row gather's backward g is
-// the gathered tensor's cotangent flattened to [N * A, W] and div = 1.  A
-// gather over a table instead of a scatter-add: deterministic, no atomics.
-// Masked entries are not loaded.  It replaces the XLA gathers of
-// `_nei_sum_t_bwd` and `_gather_nd_t_bwd` (ggpm_tpu/ops/graph_ops.py), which
-// had no Pallas kernel.  It is the forward's code with a weight per entry
-// and a divisor: the same launch kinds, widths and templates (K for A),
-// chosen by the same `plan`; it is bound by the same latency and bytes.
-// The forward's instantiations (kT false) run the forward's code as it
-// was before the transpose existed; the two trailing kernel arguments
-// (mask, div) are unused there.
+// h is f32 [M, H], graph int32 [N, A], out f32 [N, H].  Row 0 of h is the
+// zero padding row, so padded slots of graph (index 0) add nothing and need
+// no mask.  The sum runs in the fixed order a = 0..A-1 in fp32 registers.
 //
 // Replaces the Pallas TPU kernel `_kernel` of ggpm_tpu/ops/pallas_gather.py
 // (launched by `_nei_sum_pallas_impl`, wrapped by `nei_sum_pallas`), which
@@ -97,14 +78,6 @@ __device__ __forceinline__ void add_to(float4& acc, float4 v) {
   acc.w += v.w;
 }
 
-__device__ __forceinline__ float scaled(float v, float w) { return v * w; }
-__device__ __forceinline__ float2 scaled(float2 v, float w) {
-  return make_float2(v.x * w, v.y * w);
-}
-__device__ __forceinline__ float4 scaled(float4 v, float w) {
-  return make_float4(v.x * w, v.y * w, v.z * w, v.w * w);
-}
-
 template <typename V>
 __device__ __forceinline__ V zero();
 template <>
@@ -116,20 +89,20 @@ __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// A row's A entries: lane j of the warp loads entry j, the warp's shuffles
+// A row's A indices: lane j of the warp loads index j, the warp's shuffles
 // hand all A to every lane.  One load per lane instead of A; a warp never
 // spans two rows (threads per row are a multiple of 32), so the whole warp
 // takes part in each shuffle.
-template <int A, typename T>
-__device__ __forceinline__ T my_entry(const T* g) {
+template <int A>
+__device__ __forceinline__ int32_t my_idx(const int32_t* g) {
   const int lane = threadIdx.x & 31;
   return __ldg(g + (lane < A ? lane : 0));
 }
 
-template <int A, typename T>
-__device__ __forceinline__ void share(T (&v)[A], T mine) {
+template <int A>
+__device__ __forceinline__ void share_idx(int32_t (&idx)[A], int32_t mine) {
 #pragma unroll
-  for (int j = 0; j < A; ++j) v[j] = __shfl_sync(0xffffffffu, mine, j);
+  for (int j = 0; j < A; ++j) idx[j] = __shfl_sync(0xffffffffu, mine, j);
 }
 
 // Column chunk c of the row whose A neighbours are idx: all A loads are
@@ -141,24 +114,6 @@ __device__ __forceinline__ V sum_row(const V* __restrict__ h,
   V v[A];
 #pragma unroll
   for (int j = 0; j < A; ++j) v[j] = __ldg(h + static_cast<int64_t>(idx[j]) * cols + c);
-  V acc = v[0];
-#pragma unroll
-  for (int j = 1; j < A; ++j) add_to(acc, v[j]);
-  return acc;
-}
-
-// The transpose's: each entry weighted, a masked entry not loaded.
-template <typename V, int A>
-__device__ __forceinline__ V sum_row_t(const V* __restrict__ g,
-                                       const int32_t (&idx)[A],
-                                       const float (&w)[A], int64_t cols,
-                                       int64_t c) {
-  V v[A];
-#pragma unroll
-  for (int j = 0; j < A; ++j) {
-    v[j] = w[j] != 0.f ? scaled(__ldg(g + static_cast<int64_t>(idx[j]) * cols + c), w[j])
-                       : zero<V>();
-  }
   V acc = v[0];
 #pragma unroll
   for (int j = 1; j < A; ++j) add_to(acc, v[j]);
@@ -191,186 +146,95 @@ __device__ __forceinline__ V sum_row_any(const V* __restrict__ h,
   return acc;
 }
 
-template <typename V>
-__device__ __forceinline__ V sum_row_any_t(const V* __restrict__ g,
-                                           const int32_t* __restrict__ t,
-                                           const float* __restrict__ m, int k,
-                                           int32_t div, int64_t cols, int64_t c) {
-  V acc = zero<V>();
-  for (int j0 = 0; j0 < k; j0 += kGroup) {
-    int32_t idx[kGroup];
-    float w[kGroup];
-    V v[kGroup];
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      if (j0 + j < k) {
-        idx[j] = __ldg(t + j0 + j) / div;
-        w[j] = __ldg(m + j0 + j);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      if (j0 + j < k) {
-        v[j] = w[j] != 0.f ? scaled(__ldg(g + static_cast<int64_t>(idx[j]) * cols + c), w[j])
-                           : zero<V>();
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      if (j0 + j < k) add_to(acc, v[j]);
-    }
-  }
-  return acc;
-}
-
-// All kinds take the same arguments; A == 0 is the generic path (runtime
-// a).  With kT, h is the cotangent g, graph is t_idx and a is K.
+// All kinds take the same arguments; A == 0 is the generic path (runtime a).
 
 // `rows`: one tile of blockDim.y rows per block, for grids of one wave.
-template <typename V, int A, bool kT>
+template <typename V, int A>
 __global__ void __launch_bounds__(kMaxThreads)
 nei_sum_kernel_rows(const float* __restrict__ hf, const int32_t* __restrict__ graph,
-                    float* __restrict__ outf, int64_t n, int32_t a, int64_t cols,
-                    const float* __restrict__ mask, int32_t div) {
+                    float* __restrict__ outf, int64_t n, int32_t a, int64_t cols) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.y + threadIdx.y;
   if (row >= n) return;
   const V* h = reinterpret_cast<const V*>(hf);
   V* dst = reinterpret_cast<V*>(outf) + row * cols;
-  if constexpr (A > 0 && !kT) {
+  if constexpr (A > 0) {
     int32_t idx[A];
-    share<A>(idx, my_entry<A>(graph + row * A));
+    share_idx<A>(idx, my_idx<A>(graph + row * A));
     for (int64_t c = threadIdx.x; c < cols; c += blockDim.x) {
       __stcs(dst + c, sum_row<V, A>(h, idx, cols, c));
     }
-  } else if constexpr (A > 0) {
-    int32_t idx[A];
-    float w[A];
-    share<A>(idx, my_entry<A>(graph + row * A) / div);
-    share<A>(w, my_entry<A>(mask + row * A));
-    for (int64_t c = threadIdx.x; c < cols; c += blockDim.x) {
-      __stcs(dst + c, sum_row_t<V, A>(h, idx, w, cols, c));
-    }
-  } else if constexpr (!kT) {
-    for (int64_t c = threadIdx.x; c < cols; c += blockDim.x) {
-      __stcs(dst + c, sum_row_any<V>(h, graph + row * a, a, cols, c));
-    }
   } else {
     for (int64_t c = threadIdx.x; c < cols; c += blockDim.x) {
-      __stcs(dst + c, sum_row_any_t<V>(h, graph + row * a, mask + row * a, a,
-                                       div, cols, c));
+      __stcs(dst + c, sum_row_any<V>(h, graph + row * a, a, cols, c));
     }
   }
 }
 
 // `tiled`: a persistent grid; block b takes tiles b, b + gridDim.x, ...
-// and each thread prefetches its next row's entries into registers.
-template <typename V, int A, bool kT>
+// and each thread prefetches its next row's indices into registers.
+template <typename V, int A>
 __global__ void __launch_bounds__(kMaxThreads)
 nei_sum_kernel_tiled(const float* __restrict__ hf, const int32_t* __restrict__ graph,
-                     float* __restrict__ outf, int64_t n, int32_t a, int64_t cols,
-                     const float* __restrict__ mask, int32_t div) {
+                     float* __restrict__ outf, int64_t n, int32_t a, int64_t cols) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.y;
   int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.y + threadIdx.y;
   const V* h = reinterpret_cast<const V*>(hf);
   V* out = reinterpret_cast<V*>(outf);
-  if constexpr (A > 0 && !kT) {
-    int32_t mine = row < n ? my_entry<A>(graph + row * A) : 0;
+  if constexpr (A > 0) {
+    int32_t mine = row < n ? my_idx<A>(graph + row * A) : 0;
     for (; row < n; row += stride) {
-      const int32_t nxt = row + stride < n ? my_entry<A>(graph + (row + stride) * A) : 0;
+      const int32_t nxt = row + stride < n ? my_idx<A>(graph + (row + stride) * A) : 0;
       int32_t idx[A];
-      share<A>(idx, mine);
+      share_idx<A>(idx, mine);
       for (int64_t c = threadIdx.x; c < cols; c += blockDim.x) {
         __stcs(out + row * cols + c, sum_row<V, A>(h, idx, cols, c));
       }
       mine = nxt;
     }
-  } else if constexpr (A > 0) {
-    int32_t mine = row < n ? my_entry<A>(graph + row * A) / div : 0;
-    float mine_w = row < n ? my_entry<A>(mask + row * A) : 0.f;
-    for (; row < n; row += stride) {
-      const bool more = row + stride < n;
-      const int32_t nxt = more ? my_entry<A>(graph + (row + stride) * A) / div : 0;
-      const float nxt_w = more ? my_entry<A>(mask + (row + stride) * A) : 0.f;
-      int32_t idx[A];
-      float w[A];
-      share<A>(idx, mine);
-      share<A>(w, mine_w);
-      for (int64_t c = threadIdx.x; c < cols; c += blockDim.x) {
-        __stcs(out + row * cols + c, sum_row_t<V, A>(h, idx, w, cols, c));
-      }
-      mine = nxt;
-      mine_w = nxt_w;
-    }
   } else {
     for (; row < n; row += stride) {
       for (int64_t c = threadIdx.x; c < cols; c += blockDim.x) {
-        if constexpr (kT) {
-          __stcs(out + row * cols + c,
-                 sum_row_any_t<V>(h, graph + row * a, mask + row * a, a, div,
-                                  cols, c));
-        } else {
-          __stcs(out + row * cols + c, sum_row_any<V>(h, graph + row * a, a, cols, c));
-        }
+        __stcs(out + row * cols + c, sum_row_any<V>(h, graph + row * a, a, cols, c));
       }
     }
   }
 }
 
 using Kernel = void (*)(const float*, const int32_t*, float*, int64_t, int32_t,
-                        int64_t, const float*, int32_t);
+                        int64_t);
 
-template <typename V, int A, bool kT>
+template <typename V, int A>
 Kernel pick_kind(int kind) {
   switch (kind) {
-    case kRows: return nei_sum_kernel_rows<V, A, kT>;
-    case kTiled: return nei_sum_kernel_tiled<V, A, kT>;
+    case kRows: return nei_sum_kernel_rows<V, A>;
+    case kTiled: return nei_sum_kernel_tiled<V, A>;
     default: return nullptr;
   }
 }
 
-template <typename V, bool kT>
+template <typename V>
 Kernel pick_width(int kind, int a_tmpl) {
   switch (a_tmpl) {
-    case 0: return pick_kind<V, 0, kT>(kind);
-    case 1: return pick_kind<V, 1, kT>(kind);
-    case 2: return pick_kind<V, 2, kT>(kind);
-    case 3: return pick_kind<V, 3, kT>(kind);
-    case 4: return pick_kind<V, 4, kT>(kind);
-    case 5: return pick_kind<V, 5, kT>(kind);
-    case 6: return pick_kind<V, 6, kT>(kind);
-    case 7: return pick_kind<V, 7, kT>(kind);
-    case 8: return pick_kind<V, 8, kT>(kind);
+    case 0: return pick_kind<V, 0>(kind);
+    case 1: return pick_kind<V, 1>(kind);
+    case 2: return pick_kind<V, 2>(kind);
+    case 3: return pick_kind<V, 3>(kind);
+    case 4: return pick_kind<V, 4>(kind);
+    case 5: return pick_kind<V, 5>(kind);
+    case 6: return pick_kind<V, 6>(kind);
+    case 7: return pick_kind<V, 7>(kind);
+    case 8: return pick_kind<V, 8>(kind);
     default: return nullptr;
   }
 }
 
-template <bool kT>
-Kernel pick_vec(int kind, int vec, int a_tmpl) {
+Kernel pick(int kind, int vec, int a_tmpl) {
   switch (vec) {
-    case 1: return pick_width<float, kT>(kind, a_tmpl);
-    case 2: return pick_width<float2, kT>(kind, a_tmpl);
-    case 4: return pick_width<float4, kT>(kind, a_tmpl);
+    case 1: return pick_width<float>(kind, a_tmpl);
+    case 2: return pick_width<float2>(kind, a_tmpl);
+    case 4: return pick_width<float4>(kind, a_tmpl);
     default: return nullptr;
   }
-}
-
-Kernel pick(int transpose, int kind, int vec, int a_tmpl) {
-  return transpose ? pick_vec<true>(kind, vec, a_tmpl)
-                   : pick_vec<false>(kind, vec, a_tmpl);
-}
-
-int launch(Kernel k, const float* h, const int32_t* graph, float* out, int64_t n,
-           int64_t a, int64_t cols, const float* mask, int64_t div, int tpr,
-           int rpb, int64_t grid, void* stream) {
-  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int32_t a32 = static_cast<int32_t>(a);
-  int32_t div32 = static_cast<int32_t>(div);
-  void* args[] = {&h, &graph, &out, &n, &a32, &cols, &mask, &div32};
-  const cudaError_t err = cudaLaunchKernel(
-      reinterpret_cast<const void*>(k), dim3(static_cast<unsigned>(grid)),
-      dim3(tpr, rpb), args, 0, static_cast<cudaStream_t>(stream));
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
@@ -378,11 +242,9 @@ int launch(Kernel k, const float* h, const int32_t* graph, float* out, int64_t n
 extern "C" {
 
 // Blocks of `threads` threads that fit on one SM at once for the kernel
-// (transpose, kind, vec, a_tmpl); -1 if no such kernel exists or the query
-// fails.
-int ggpm_nei_sum_blocks_per_sm(int transpose, int kind, int vec, int a_tmpl,
-                               int threads) {
-  Kernel k = pick(transpose, kind, vec, a_tmpl);
+// (kind, vec, a_tmpl); -1 if no such kernel exists or the query fails.
+int ggpm_nei_sum_blocks_per_sm(int kind, int vec, int a_tmpl, int threads) {
+  Kernel k = pick(kind, vec, a_tmpl);
   if (k == nullptr) return -1;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -392,25 +254,21 @@ int ggpm_nei_sum_blocks_per_sm(int transpose, int kind, int vec, int a_tmpl,
   return blocks;
 }
 
-// Launches the forward plan on `stream` and returns the launch's error,
-// else cudaGetLastError() (0 on success).  cols = H / vec; a_tmpl is A when
+// Launches the plan on `stream` and returns the launch's error, else
+// cudaGetLastError() (0 on success).  cols = H / vec; a_tmpl is A when
 // 1 <= A <= 8, else 0 (the generic path).
 int ggpm_nei_sum_f32(const float* h, const int32_t* graph, float* out, int64_t n,
                      int64_t a, int64_t cols, int kind, int vec, int a_tmpl,
                      int tpr, int rpb, int64_t grid, void* stream) {
-  return launch(pick(0, kind, vec, a_tmpl), h, graph, out, n, a, cols, nullptr,
-                1, tpr, rpb, grid, stream);
-}
-
-// The transpose: g [*, W], t_idx and t_mask [n, k], out [n, W]; cols =
-// W / vec; k_tmpl is K when 1 <= K <= 8, else 0.  Returns as the forward.
-int ggpm_nei_sum_t_f32(const float* g, const int32_t* t_idx, const float* t_mask,
-                       float* out, int64_t n, int64_t k, int64_t div, int64_t cols,
-                       int kind, int vec, int k_tmpl, int tpr, int rpb,
-                       int64_t grid, void* stream) {
-  if (div < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(pick(1, kind, vec, k_tmpl), g, t_idx, out, n, k, cols, t_mask,
-                div, tpr, rpb, grid, stream);
+  Kernel k = pick(kind, vec, a_tmpl);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int32_t a32 = static_cast<int32_t>(a);
+  void* args[] = {&h, &graph, &out, &n, &a32, &cols};
+  const cudaError_t err = cudaLaunchKernel(
+      reinterpret_cast<const void*>(k), dim3(static_cast<unsigned>(grid)),
+      dim3(tpr, rpb), args, 0, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // extern "C"

@@ -1,26 +1,37 @@
 """The cases of the port's kernels and the device timing that
 ``chip_smoke.py`` holds them to; run alone, it times ``nei_sum`` at every
-case (``train_cases``, the training step's, and ``gather_case``, the
-depth loop's, are measured by ``chip_smoke.py``).
+case, or with ``--transpose`` its transpose ``transpose_sum`` at every case
+(``train_cases``, the training step's, and ``gather_case``, the depth
+loop's, are measured by ``chip_smoke.py``).
 
     python -m ggpm_tpu_torch.kernel_bench [--out PATH]
+    python -m ggpm_tpu_torch.kernel_bench --transpose [--sweep] [--out PATH]
 
-Cases: the two readouts of a 64-molecule HOPV request, that tree tiled 64
-times into one block-diagonal batch (a 4,096-molecule screening request),
-the neighbour width A swept over {1, 2, 3, 4, 6, 8} at the serve width, the
-decoder's frontier readout at B = 64 and B = 120 (``frontier_graph``), and
-ragged, float4 and large random cases.  Per case it prints one JSON line:
-max abs error against the plain version, device ms of the kernel, of its
-plain version and of the one PyTorch call that computes the same function,
-the bound (distinct rows of ``h`` read once, ``graph`` read once, ``out``
-written once, over the card's HBM rate) and the launch floor (a
-one-element launch in the same harness).
+``nei_sum`` cases: the two readouts of a 64-molecule HOPV request, that
+tree tiled 64 times into one block-diagonal batch (a 4,096-molecule
+screening request), the neighbour width A swept over {1, 2, 3, 4, 6, 8} at
+the serve width, the decoder's frontier readout at B = 64 and B = 120
+(``frontier_graph``), and ragged, float4 and large random cases.  Per case
+it prints one JSON line: max abs error against the plain version, device
+ms of the kernel, of its plain version and of the one PyTorch call that
+computes the same function (``embedding_bag``), the bound (distinct rows of
+``h`` read once, ``graph`` read once, ``out`` written once, over the card's
+HBM rate) and the launch floor (a one-element launch in the same harness).
 
-It calls only ``ops.nei_sum.nei_sum(h, graph)``, the plain
-``ops.graph_ops.nei_sum`` and the data modules, so a copy of this file put
-into an earlier checkout of the port times that checkout's kernel at the
-same cases: run the two in turns in one chip call to compare a redesign
-with its parent.  Needs a CUDA device; it has no CPU mode.
+``transpose_sum`` cases (``transpose_cases``): the four of the first HOPV
+training batch (the depth loop's gather backward and three readout
+backwards, ``train_cases``) and every ``T_SHAPES`` shape of the card tests;
+each line as ``measure`` gives it, with whether the output equals the
+in-order sum bit for bit.  ``--sweep`` adds the device ms of every forced
+launch plan (``sweep_transpose``).
+
+Without ``--sweep`` it calls only ``ops.nei_sum.nei_sum`` /
+``transpose_sum``, the plain ``ops.graph_ops`` versions and the data
+modules, so a copy of this file put into an earlier checkout of the port
+(one that has ``profile_train.hopv_batches`` and ``train.loop.to_device``
+for ``--transpose``) times that checkout's kernel at the same cases: run
+the two in turns in one chip call to compare a redesign with its parent.
+Needs a CUDA device; it has no CPU mode.
 """
 
 from __future__ import annotations
@@ -33,8 +44,9 @@ from typing import Callable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .data.batching import to_model_batch
+from .data.batching import compact_plan_dict, to_model_batch, train_tables
 from .data.dataset import prune_to_vocab, read_csv_data
 from .graph.mol_graph import tensorize
 from .graph.vocab import common_atom_vocab, load_vocab_file
@@ -140,10 +152,10 @@ def nei_sum_cases(tree: dict, gen: torch.Generator,
 
 
 def library_nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
-    """The one PyTorch call that computes ``nei_sum`` (a yardstick only;
-    the port never calls it)."""
-    return torch.index_select(h, 0, graph.view(-1)).view(
-        graph.shape[0], graph.shape[1], h.shape[1]).sum(1)
+    """The one PyTorch call that computes ``nei_sum``: a bag sum of the
+    rows of ``h`` that each row of ``graph`` names (a yardstick only; the
+    port never calls it)."""
+    return F.embedding_bag(graph, h, mode='sum')
 
 
 def nei_sum_bytes(h: torch.Tensor, graph: torch.Tensor) -> int:
@@ -267,16 +279,15 @@ def library_gather(src: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
         *graph.shape, src.shape[1])
 
 
-def library_transpose(rows: torch.Tensor, graph: torch.Tensor, m: int
+def library_transpose(g: torch.Tensor, t_idx: torch.Tensor,
+                      t_mask: torch.Tensor, div: int
                       ) -> Callable[[], torch.Tensor]:
-    """The transpose as ``index_add_`` over the forward table ``graph``
-    (a yardstick; it also sums into row 0, which the transpose leaves
-    out): ``rows`` holds one row per entry of ``graph``, so for
-    ``nei_sum``'s backward the cotangent is expanded over A beforehand,
-    outside the timed call."""
-    flat = graph.reshape(-1)
-    return lambda: torch.zeros((m, rows.shape[1]), device=rows.device
-                               ).index_add_(0, flat, rows)
+    """The one PyTorch call that computes the transpose: a bag sum of the
+    rows ``t_idx // div`` of ``g`` weighted by ``t_mask`` (a yardstick
+    only).  The division is done here, outside the timed call."""
+    rows = (t_idx // div).contiguous()
+    return lambda: F.embedding_bag(rows, g, per_sample_weights=t_mask,
+                                   mode='sum')
 
 
 def gather_case(name: str, tree: dict, gen: torch.Generator,
@@ -317,33 +328,17 @@ def train_cases(batch: dict, gen: torch.Generator, hidden: int = 250
     n_roots = tree['scope'].shape[0]
     roots = tree['agraph'][tree['scope'][:, 0].long()]
     sites = (('depth-gather-bwd', bg, tree['bgraph_t'], tree['bgraph_tm'],
-              3 * H, 1, n_mess),
+              3 * H, 1),
              ('readout-bwd', tree['agraph'], tree['agraph_t'],
-              tree['agraph_tm'], H, tree['agraph'].shape[1], n_mess),
+              tree['agraph_tm'], H, tree['agraph'].shape[1]),
              ('root-bwd', roots, tree['root_t'], tree['root_tm'], H,
-              roots.shape[1], n_mess),
+              roots.shape[1]),
              ('frontier-bwd', plan['frontier'], plan['frontier_t'],
-              plan['frontier_tm'], H, plan['frontier'].shape[1],
-              n_mess + n_roots))
-    for name, graph, t_idx, t_mask, width, div, m in sites:
+              plan['frontier_tm'], H, plan['frontier'].shape[1]))
+    for name, graph, t_idx, t_mask, width, div in sites:
         rows = graph.numel() if div == 1 else graph.shape[0]
         g = torch.rand((rows, width), generator=gen, device=dev) * 2 - 1
-        expanded = (g if div == 1 else g[:, None, :].expand(
-            -1, div, -1).reshape(-1, width)).contiguous()
-        nnz = int(t_mask.sum().item())
-        read = torch.unique((t_idx // div)[t_mask > 0]).numel()
-        cases.append(dict(
-            kernel='transpose_sum', case=name, shape=dict(
-                g=list(g.shape), t_idx=list(t_idx.shape), div=div),
-            call=lambda g=g, t=t_idx, mk=t_mask, d=div: transpose_sum(
-                g, t, mk, d),
-            plain=lambda g=g, t=t_idx, mk=t_mask, d=div:
-                graph_ops.transpose_sum(g, t, mk, d),
-            exact=lambda g=g, t=t_idx, mk=t_mask, d=div: in_order_transpose(
-                g, t, mk, d),
-            library=library_transpose(expanded, graph, m),
-            bytes=4 * (read * width + 2 * t_idx.numel() +
-                       t_idx.shape[0] * width), ops=nnz * width))
+        cases.append(transpose_case(name, g, t_idx, t_mask, div))
     fr = plan['frontier']
     h = random_table(gen, n_mess + n_roots, H)
     cases.append(dict(
@@ -354,6 +349,111 @@ def train_cases(batch: dict, gen: torch.Generator, hidden: int = 250
         library=lambda: library_nei_sum(h, fr),
         bytes=nei_sum_bytes(h, fr), ops=nei_sum_ops(h, fr)))
     return cases
+
+
+def transpose_case(name: str, g: torch.Tensor, t_idx: torch.Tensor,
+                   t_mask: torch.Tensor, div: int) -> dict:
+    """``transpose_sum(g, t_idx, t_mask, div)`` as a case of ``measure``:
+    the bytes count the distinct rows of ``g`` that the real entries read,
+    both tables and ``out``, once each; the operations one multiply-add
+    per real entry and column."""
+    nnz = int(t_mask.sum().item())
+    read = torch.unique((t_idx // div)[t_mask > 0]).numel()
+    width = g.shape[1]
+    return dict(
+        kernel='transpose_sum', case=name, shape=dict(
+            g=list(g.shape), t_idx=list(t_idx.shape), div=div),
+        call=lambda: transpose_sum(g, t_idx, t_mask, div),
+        plain=lambda: graph_ops.transpose_sum(g, t_idx, t_mask, div),
+        exact=lambda: in_order_transpose(g, t_idx, t_mask, div),
+        library=library_transpose(g, t_idx, t_mask, div),
+        bytes=4 * (read * width + 2 * t_idx.numel() + t_idx.shape[0] * width),
+        ops=nnz * width, args=(g, t_idx, t_mask, div))
+
+
+# (M source rows, W, N rows of the forward table, A, div is A?): the
+# training step's B1 backward (W 250, div A) at the node, root and frontier
+# tables' widths, and the depth loop's gather backward (W 750, div 1) over
+# bgraph's widths; A = 12 takes the generic path.  K comes from the data.
+T_SHAPES = [(m, w, n, a, by_a) for a in (1, 4, 6, 8, 12)
+            for (m, w, n, by_a) in ((768, 250, 384, True),
+                                    (768, 750, 768, False),
+                                    (2001, 250, 1501, True),
+                                    (2001, 750, 3001, False))]
+
+
+def transpose_inputs(m: int, w: int, n: int, a: int, by_a: bool, device,
+                     seed: int = 1):
+    """A random forward table over ``m`` rows (a quarter of its slots
+    padding), its transpose, and a cotangent ``g`` of the forward's output:
+    [n, w] for nei_sum (div A), [n·a, w] for the row gather (div 1).
+    Returns (graph, t_idx, t_mask, g, div)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    graph = torch.randint(0, m, (n, a), generator=gen, device=device,
+                          dtype=torch.int32)
+    graph[torch.rand((n, a), generator=gen, device=device) < 0.25] = 0
+    t_idx, t_mask = graph_ops.build_transpose(graph.cpu().numpy(), m)
+    rows = n if by_a else n * a
+    g = torch.rand((rows, w), generator=gen, device=device) * 2 - 1
+    return (graph, torch.as_tensor(t_idx, device=device),
+            torch.as_tensor(t_mask, device=device), g, a if by_a else 1)
+
+
+def train_batch(device) -> dict:
+    """The first HOPV batch of 20 of the canonical training configuration
+    as ``Trainer.device_batch`` makes it (padded, lane-packed, with the
+    training tables), on ``device``; no model is loaded."""
+    from .profile_train import hopv_batches
+    from .train.loop import to_device
+    vocab, batches = hopv_batches(1, load_vocab_file(VOCAB))
+    mb = to_model_batch(batches[0], vocab.mask, pad=False)
+    mb = dict(mb, plan=compact_plan_dict(
+        {k: np.asarray(v) for k, v in mb['plan'].items()}))
+    return to_device(train_tables(mb), device)
+
+
+def transpose_cases(device) -> List[dict]:
+    """The transpose at the training step's shapes (the K2 cases of
+    ``train_cases``, from ``train_batch``) and at every ``T_SHAPES``
+    shape, values from seeded generators."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    cases = [c for c in train_cases(train_batch(device), gen)
+             if c['kernel'] == 'transpose_sum']
+    for shape in T_SHAPES:
+        _, t_idx, t_mask, g, div = transpose_inputs(*shape, device=device)
+        cases.append(transpose_case('T' + '-'.join(map(str, shape)), g,
+                                    t_idx, t_mask, div))
+    return cases
+
+
+def sweep_transpose(case: dict) -> dict:
+    """Device ms of the transpose at ``case`` under each forced count of
+    column chunks per thread, each plan's output held bit for bit to the
+    in-order sum; and two floors in the same harness: the wrapper's plan
+    with every weight 0 (``index_and_store_ms``: the round of table loads,
+    then the stores, no row of ``g`` read) and one PyTorch fill of ``out``
+    (``store_ms``: the stores alone)."""
+    from .ops.nei_sum import MAX_CHUNKS, device_plan_t, launch_transpose
+    g, t_idx, t_mask, div = case['args']
+    out = torch.empty((t_idx.shape[0], g.shape[1]), device=g.device)
+    exact = case['exact']()
+    row = {}
+    for chunks in range(1, MAX_CHUNKS + 1):
+        p = device_plan_t(g, t_idx, out, chunks)
+
+        def run(p=p):
+            return launch_transpose(g, t_idx, t_mask, div, out, p)
+        if not torch.equal(run(), exact):
+            raise AssertionError(f'transpose {case["case"]} chunks {chunks}: '
+                                 f'not the in-order sum')
+        row[f'C{chunks}'] = dict(tpr=p.tpr, rpb=p.rpb, grid=p.grid,
+                                 ms=device_ms(run))
+    no_entries = torch.zeros_like(t_mask)
+    p = device_plan_t(g, t_idx, out)
+    row['index_and_store_ms'] = device_ms(
+        lambda: launch_transpose(g, t_idx, no_entries, div, out, p))
+    row['store_ms'] = device_ms(out.zero_)
+    return row
 
 
 def measure(cases: Sequence[dict], floor: float) -> Iterator[dict]:
@@ -379,19 +479,33 @@ def measure(cases: Sequence[dict], floor: float) -> Iterator[dict]:
 def main(argv=None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--out', default=None, help='also write the lines here')
+    ap.add_argument('--transpose', action='store_true',
+                    help='time transpose_sum at its cases instead')
+    ap.add_argument('--sweep', action='store_true',
+                    help='with --transpose, also time each forced plan')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('kernel_bench needs a CUDA device')
     smi = nvidia_smi()
     print(smi, flush=True)
     rows = []
-    vocab = load_vocab_file(VOCAB)
-    decode_trees = [serve_tree(vocab, n) for n in DECODE_BATCHES]
-    for case, _, _, row in measure_cases(serve_tree(vocab), floor_ms(),
-                                         decode_trees=decode_trees):
-        row = dict(case=case, device=smi, **row)
-        print('nei_sum ' + json.dumps(row), flush=True)
-        rows.append(row)
+    if args.transpose:
+        floor = floor_ms()
+        cases = transpose_cases('cuda')
+        for case, row in zip(cases, measure(cases, floor)):
+            row['device'] = smi
+            if args.sweep:
+                row['plans'] = sweep_transpose(case)
+            print('transpose_sum ' + json.dumps(row), flush=True)
+            rows.append(row)
+    else:
+        vocab = load_vocab_file(VOCAB)
+        decode_trees = [serve_tree(vocab, n) for n in DECODE_BATCHES]
+        for case, _, _, row in measure_cases(serve_tree(vocab), floor_ms(),
+                                             decode_trees=decode_trees):
+            row = dict(case=case, device=smi, **row)
+            print('nei_sum ' + json.dumps(row), flush=True)
+            rows.append(row)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:

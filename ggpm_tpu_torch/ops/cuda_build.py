@@ -21,7 +21,7 @@ from typing import Dict, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD = os.path.join(os.path.dirname(_PKG), 'build')
-KERNELS = ('nei_sum', 'gather_rows')
+KERNELS = ('nei_sum', 'transpose_sum', 'gather_rows')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 

@@ -24,10 +24,9 @@ import torch
 
 from . import graph_ops
 from .cuda_build import library
-from .nei_sum import transpose_sum, vec_width
+from .nei_sum import MAX_GRID, transpose_sum, vec_width
 
 MAX_THREADS = 256          # threads per block (csrc/gather_rows.cu: kMaxThreads)
-MAX_GRID = 2 ** 31 - 1
 
 
 @dataclass(frozen=True)

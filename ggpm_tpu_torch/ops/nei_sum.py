@@ -6,18 +6,22 @@ Port of the Pallas TPU kernel ``ggpm_tpu/ops/pallas_gather.py:_kernel``
 source says how it is laid out and what bounds it.  The encoder calls it at
 both of its readouts (the node readout over ``agraph`` and the root readout),
 the decoder at its frontier readouts (decode steps and the teacher-forced
-scan).  ``transpose_sum`` launches the same source's transpose
-(``out[m] = Σ_k mask[m, k] · g[t_idx[m, k] // div]``), and ``nei_sum_t``
-is ``nei_sum`` with that as its backward, an autograd Function.
+scan).  ``transpose_sum`` launches its transpose
+(``out[m] = Σ_k mask[m, k] · g[t_idx[m, k] // div]``), a kernel of its own
+shaped for the training step's backward, ``csrc/transpose_sum.cu``; and
+``nei_sum_t`` is ``nei_sum`` with that as its backward, an autograd
+Function.
 
-``plan`` chooses the launch (kernel kind, load width, threads per row, rows
-per block, grid) from the shapes alone, in plain Python, so the CPU tests
-reach it.  ``nei_sum`` launches the kernel for CUDA tensors and raises if
-it cannot; it never falls back.  For CPU tensors it computes the plain
-version, ``graph_ops.nei_sum``.  ``nei_sum.launches`` counts kernel
-launches (``transpose_sum.launches`` the transpose's).  ``device_plan``
-and ``launch`` run a given plan, so a measurement can compare the kinds on
-the same inputs.
+``plan`` and ``plan_t`` choose each kernel's launch (load width, threads
+per row, rows per block, grid; the forward's kind, the transpose's column
+chunks per thread) from the shapes alone, in plain Python, so the CPU tests
+reach them.  ``nei_sum`` and ``transpose_sum`` launch their kernels for
+CUDA tensors and raise if they cannot; they never fall back.  For CPU
+tensors they compute the plain versions, ``graph_ops.nei_sum`` and
+``graph_ops.transpose_sum``.  ``nei_sum.launches`` and
+``transpose_sum.launches`` count kernel launches.  ``device_plan`` /
+``launch`` and ``device_plan_t`` / ``launch_transpose`` run a given plan,
+so a measurement can compare plans on the same inputs.
 """
 
 from __future__ import annotations
@@ -90,21 +94,15 @@ def plan(n: int, a: int, hdim: int, vec: int, sms: int,
     return Plan(kind, vec, a_tmpl, tpr, rpb, grid)
 
 
-_PLAN_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
-
-
 def _lib() -> ctypes.CDLL:
     lib = library('nei_sum')
     fn = lib.ggpm_nei_sum_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + _PLAN_ARGS
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
+            ctypes.c_int] * 5 + [ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        tr = lib.ggpm_nei_sum_t_f32
-        tr.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + _PLAN_ARGS
-        tr.restype = ctypes.c_int
         occ = lib.ggpm_nei_sum_blocks_per_sm
-        occ.argtypes = [ctypes.c_int] * 5
+        occ.argtypes = [ctypes.c_int] * 4
         occ.restype = ctypes.c_int
     return lib
 
@@ -135,24 +133,27 @@ def vec_width(h: torch.Tensor, out: torch.Tensor) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def _device_plan(device: int, n: int, a: int, hdim: int, vec: int,
-                 kind: Optional[str], transpose: bool) -> Plan:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+                 kind: Optional[str]) -> Plan:
     a_tmpl = a if 1 <= a <= MAX_A_TEMPLATE else 0
 
     def resident(k, threads):
         with torch.cuda.device(device):
-            return _lib().ggpm_nei_sum_blocks_per_sm(
-                int(transpose), KINDS.index(k), vec, a_tmpl, threads)
-    return plan(n, a, hdim, vec, sms, resident, kind)
+            return _lib().ggpm_nei_sum_blocks_per_sm(KINDS.index(k), vec,
+                                                     a_tmpl, threads)
+    return plan(n, a, hdim, vec, _sms(device), resident, kind)
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def device_plan(h: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
-                kind: Optional[str] = None, transpose: bool = False) -> Plan:
-    """``plan`` for these CUDA tensors on their card (``kind`` as there);
-    ``transpose`` plans the transpose, ``graph`` then being ``t_idx``."""
+                kind: Optional[str] = None) -> Plan:
+    """``plan`` for these CUDA tensors on their card (``kind`` as there)."""
     n, a = graph.shape
     return _device_plan(h.device.index, n, a, h.shape[1], vec_width(h, out),
-                        kind, transpose)
+                        kind)
 
 
 def launch(h: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
@@ -195,21 +196,96 @@ def nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
 nei_sum.launches = 0
 
 
+# the transpose's constants (csrc/transpose_sum.cu: kMaxThreads)
+T_MAX_THREADS = 384        # threads per block
+MAX_CHUNKS = 2             # column chunks per thread: C = 1, 2 are templates
+ROW_THREADS = 192          # threads a row takes, chunks permitting (PERF.md 6)
+BLOCK_THREADS = 256        # threads a block takes, rows permitting
+MAX_GRID = 2 ** 31 - 1
+
+
+@dataclass(frozen=True)
+class PlanT:
+    """One launch of ``csrc/transpose_sum.cu``: ``grid`` blocks of ``tpr``
+    x ``rpb`` threads, ``tpr`` threads per row (``rpb`` rows a block),
+    each with ``chunks`` column chunks of ``vec`` floats.  ``k_tmpl`` is K
+    when 1 <= K <= 8, else 0 (generic path)."""
+    vec: int
+    k_tmpl: int
+    chunks: int
+    tpr: int
+    rpb: int
+    grid: int
+
+
+def plan_t(n: int, k: int, width: int, vec: int, sms: int,
+           chunks: Optional[int] = None) -> PlanT:
+    """The transpose's launch for ``t_idx`` [n, k] over rows of ``width``
+    floats read as ``vec``-wide chunks, on a card of ``sms`` SMs.
+
+    One pass per row: ``chunks`` chunks per thread (by default as many as
+    ``ROW_THREADS`` threads need for the row, at most ``MAX_CHUNKS``) and
+    ``tpr`` = the row's chunks over ``chunks``, rounded up to a warp, so
+    ``tpr * chunks`` covers the row unless it is wider than
+    ``MAX_CHUNKS * T_MAX_THREADS`` chunks (then each thread makes more
+    passes).  A block takes ``BLOCK_THREADS // tpr`` rows, one if that
+    leaves fewer than two blocks per SM.  ``chunks`` may be forced, for
+    measurements that compare plans."""
+    if n <= 0 or k < 0 or width % vec:
+        raise ValueError(f'transpose_sum plan: n {n}, k {k}, width {width}, '
+                         f'vec {vec}')
+    cols = width // vec
+    if chunks is None:
+        chunks = min(MAX_CHUNKS, -(-cols // ROW_THREADS))
+    if not 1 <= chunks <= MAX_CHUNKS:
+        raise ValueError(f'transpose_sum plan: {chunks} chunks per thread')
+    per_thread = -(-cols // chunks)
+    tpr = min(T_MAX_THREADS, -(-per_thread // 32) * 32)
+    rpb = max(1, BLOCK_THREADS // tpr)
+    if -(-n // rpb) < 2 * sms:
+        rpb = 1
+    grid = -(-n // rpb)
+    if grid > MAX_GRID:
+        raise ValueError(f'transpose_sum plan: grid {grid} too large')
+    k_tmpl = k if 1 <= k <= MAX_A_TEMPLATE else 0
+    return PlanT(vec, k_tmpl, chunks, tpr, rpb, grid)
+
+
+def _lib_t() -> ctypes.CDLL:
+    lib = library('transpose_sum')
+    fn = lib.ggpm_transpose_sum_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
+            ctypes.c_int] * 5 + [ctypes.c_int64, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def device_plan_t(g: torch.Tensor, t_idx: torch.Tensor, out: torch.Tensor,
+                  chunks: Optional[int] = None) -> PlanT:
+    """``plan_t`` for these CUDA tensors on their card (``chunks`` as
+    there)."""
+    n, k = t_idx.shape
+    return plan_t(n, k, g.shape[1], vec_width(g, out), _sms(g.device.index),
+                  chunks)
+
+
 def launch_transpose(g: torch.Tensor, t_idx: torch.Tensor,
                      t_mask: torch.Tensor, div: int, out: torch.Tensor,
-                     p: Plan) -> torch.Tensor:
-    """Launch the transpose under plan ``p`` (from ``device_plan(...,
-    transpose=True)`` of the same tensors) into ``out``; raises if the
+                     p: PlanT) -> torch.Tensor:
+    """Launch the transpose under plan ``p`` (from ``device_plan_t`` of
+    the same tensors) into ``out`` on the current stream; raises if the
     launch fails."""
     n, k = t_idx.shape
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = _lib().ggpm_nei_sum_t_f32(
+        err = _lib_t().ggpm_transpose_sum_f32(
             g.data_ptr(), t_idx.data_ptr(), t_mask.data_ptr(), out.data_ptr(),
-            n, k, div, g.shape[1] // p.vec, KINDS.index(p.kind), p.vec,
-            p.a_tmpl, p.tpr, p.rpb, p.grid, stream)
+            n, k, div, g.shape[1] // p.vec, p.vec, p.k_tmpl, p.chunks, p.tpr,
+            p.rpb, p.grid, stream)
     if err:
-        raise RuntimeError(f'nei_sum transpose launch failed: CUDA error {err}')
+        raise RuntimeError(f'transpose_sum kernel launch failed: CUDA error '
+                           f'{err}')
     transpose_sum.launches += 1
     return out
 
@@ -220,7 +296,8 @@ def transpose_sum(g: torch.Tensor, t_idx: torch.Tensor, t_mask: torch.Tensor,
     [R, W], int32 ``t_idx`` and f32 ``t_mask`` [M, K] (0 or 1, from
     ``graph_ops.build_transpose``), with every ``t_idx // div`` in [0, R).
     The backward of ``nei_sum`` (``div`` = A) and of the row gather
-    (``div`` = 1, ``g`` the flattened cotangent)."""
+    (``div`` = 1, ``g`` the flattened cotangent).  On the card it launches
+    ``csrc/transpose_sum.cu`` under ``plan_t``."""
     _check(g, t_idx, 'transpose_sum')
     if t_mask.shape != t_idx.shape or t_mask.dtype != torch.float32 or \
             t_mask.device != g.device or not t_mask.is_contiguous():
@@ -237,7 +314,7 @@ def transpose_sum(g: torch.Tensor, t_idx: torch.Tensor, t_mask: torch.Tensor,
     if t_idx.shape[0] == 0:
         return out
     return launch_transpose(g, t_idx, t_mask, div, out,
-                            device_plan(g, t_idx, out, transpose=True))
+                            device_plan_t(g, t_idx, out))
 
 
 transpose_sum.launches = 0

@@ -213,13 +213,11 @@ def update_deviation(steps: List[dict], golden: dict) -> List[dict]:
 
 
 def _kernel_of(key: str) -> Optional[str]:
-    """Which of ``KERNELS`` a profiler event of a device kernel is: the
-    transpose is ``nei_sum.cu``'s kernels instantiated with ``kT`` true."""
-    if 'gather_rows_kernel' in key:
-        return 'gather_rows'
-    if 'nei_sum_kernel' in key:
-        return 'transpose_sum' if ('true>' in key or 'Lb1E' in key) \
-            else 'nei_sum'
+    """Which of ``KERNELS`` a profiler event of a device kernel is, by the
+    kernel's name in its source (``csrc/<name>.cu``: ``<name>_kernel``)."""
+    for name in KERNELS:
+        if f'{name}_kernel' in key:
+            return name
     return None
 
 

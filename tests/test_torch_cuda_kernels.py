@@ -21,10 +21,14 @@ import dataclasses
 import pytest
 import torch
 
-from ggpm_tpu_torch.kernel_bench import in_order_nei_sum, in_order_transpose
+from ggpm_tpu_torch.kernel_bench import (T_SHAPES, in_order_nei_sum,
+                                         in_order_transpose, train_batch,
+                                         train_cases)
+from ggpm_tpu_torch.kernel_bench import transpose_inputs as _transpose_inputs
 from ggpm_tpu_torch.ops import graph_ops
 from ggpm_tpu_torch.ops.gather_rows import gather_nd_t, gather_rows
-from ggpm_tpu_torch.ops.nei_sum import (KINDS, device_plan, launch,
+from ggpm_tpu_torch.ops.nei_sum import (KINDS, MAX_CHUNKS, device_plan,
+                                        device_plan_t, launch,
                                         launch_transpose, nei_sum, nei_sum_t,
                                         transpose_sum)
 
@@ -111,49 +115,65 @@ def test_nei_sum_on_cuda_launches_or_raises(cuda):
 
 # -- the transpose (nei_sum's backward) and the row gather ---------------
 
-# (M source rows, W, N rows of the forward table, A, div is A?): the
-# training step's B1 backward (W 250, div A) at the node, root and frontier
-# tables' widths, and the depth loop's gather backward (W 750, div 1) over
-# bgraph's widths; A = 12 takes the generic path.  K comes from the data.
-T_SHAPES = [(m, w, n, a, by_a) for a in (1, 4, 6, 8, 12)
-            for (m, w, n, by_a) in ((768, 250, 384, True),
-                                    (768, 750, 768, False),
-                                    (2001, 250, 1501, True),
-                                    (2001, 750, 3001, False))]
+# the K2 cases of a training step (kernel_bench.train_cases on the first
+# HOPV batch), beside the random T_SHAPES
+TRAIN_T_CASES = ('depth-gather-bwd', 'readout-bwd', 'root-bwd',
+                 'frontier-bwd')
 
 
-def _transpose_inputs(m, w, n, a, by_a, device, seed=1):
-    """A forward table over ``m`` rows, its transpose, and a cotangent ``g``
-    of the forward's output: [n, w] for nei_sum (div A), [n·a, w] for the
-    row gather (div 1)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    graph = torch.randint(0, m, (n, a), generator=gen, device=device,
-                          dtype=torch.int32)
-    graph[torch.rand((n, a), generator=gen, device=device) < 0.25] = 0
-    t_idx, t_mask = graph_ops.build_transpose(graph.cpu().numpy(), m)
-    rows = n if by_a else n * a
-    g = torch.rand((rows, w), generator=gen, device=device) * 2 - 1
-    return (graph, torch.as_tensor(t_idx, device=device),
-            torch.as_tensor(t_mask, device=device), g, a if by_a else 1)
+@pytest.fixture(scope='module')
+def train_t_cases():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU: run on the card (see the module '
+                    'docstring)')
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    return {c['case']: c['args'] for c in train_cases(train_batch('cuda'), gen)
+            if c['kernel'] == 'transpose_sum'}
 
 
-@pytest.mark.parametrize('kind', [None, *KINDS])
-@pytest.mark.parametrize('shape', T_SHAPES, ids=str)
-def test_transpose_kernel_matches_plain(cuda, shape, kind):
-    _, t_idx, t_mask, g, div = _transpose_inputs(*shape, device=cuda)
+@pytest.mark.parametrize('chunks', [None, *range(1, MAX_CHUNKS + 1)])
+@pytest.mark.parametrize('shape', [*T_SHAPES, *TRAIN_T_CASES], ids=str)
+def test_transpose_kernel_matches_plain(cuda, shape, chunks, request):
+    """The wrapper's own plan (``chunks`` None), or each count of column
+    chunks per thread forced: bit for bit the in-order sum."""
+    if shape in TRAIN_T_CASES:
+        g, t_idx, t_mask, div = request.getfixturevalue('train_t_cases')[shape]
+    else:
+        _, t_idx, t_mask, g, div = _transpose_inputs(*shape, device=cuda)
     before = transpose_sum.launches
-    if kind is None:
+    if chunks is None:
         out = transpose_sum(g, t_idx, t_mask, div)
     else:
         out = torch.empty((t_idx.shape[0], g.shape[1]), device=cuda)
-        launch_transpose(g, t_idx, t_mask, div, out, device_plan(
-            g, t_idx, out, kind, transpose=True))
+        launch_transpose(g, t_idx, t_mask, div, out,
+                         device_plan_t(g, t_idx, out, chunks))
     torch.cuda.synchronize()
     assert transpose_sum.launches == before + 1
     assert torch.equal(out, in_order_transpose(g, t_idx, t_mask, div))
     torch.testing.assert_close(
         out, graph_ops.transpose_sum(g, t_idx, t_mask, div), rtol=0,
         atol=ATOL)
+
+
+@pytest.mark.parametrize('shape', [(768, 750, 768, 6, False),
+                                   (768, 250, 384, 4, True),
+                                   (2001, 250, 1501, 12, True)], ids=str)
+def test_transpose_kernel_takes_any_mask(cuda, shape):
+    """Each row's entries permuted, so that masked slots lie between real
+    ones (the table puts them last): bit for bit the in-order sum still;
+    and weights other than 0 and 1, within 1e-5 of the plain version."""
+    _, t_idx, t_mask, g, div = _transpose_inputs(*shape, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    perm = torch.argsort(torch.rand(t_idx.shape, generator=gen, device=cuda),
+                         dim=1)
+    t_idx = t_idx.gather(1, perm).contiguous()
+    t_mask = t_mask.gather(1, perm).contiguous()
+    out = transpose_sum(g, t_idx, t_mask, div)
+    assert torch.equal(out, in_order_transpose(g, t_idx, t_mask, div))
+    weights = t_mask * torch.rand(t_mask.shape, generator=gen, device=cuda) * 2
+    torch.testing.assert_close(
+        transpose_sum(g, t_idx, weights, div),
+        graph_ops.transpose_sum(g, t_idx, weights, div), rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize('shape', [(768, 750, 768, 6), (1577, 750, 1577, 5),

@@ -1,9 +1,13 @@
 """The port's ``nei_sum`` (its CPU path: the plain version of the CUDA
 kernel) against the JAX package's ``graph_ops.nei_sum`` and against the
-Pallas kernel itself, run in interpret mode.
+Pallas kernel itself, run in interpret mode; the launch plans of the CUDA
+kernels of ``nei_sum`` and of its transpose ``transpose_sum``; and the
+one PyTorch call that computes each function (``embedding_bag``, the
+yardstick ``kernel_bench`` times beside the kernels) against its plain
+version.
 
 Tolerance 1e-6 absolute: the sums take at most a few terms of magnitude
-<= 1, in an order that may differ between the three.
+<= 1, in an order that may differ between the versions.
 """
 
 import functools
@@ -16,11 +20,14 @@ from jax.experimental import pallas as pl
 
 from ggpm_tpu.ops import graph_ops as jax_ops
 from ggpm_tpu.ops import pallas_gather
-from ggpm_tpu_torch.kernel_bench import tile_graph
+from ggpm_tpu_torch.kernel_bench import (T_SHAPES, library_nei_sum,
+                                         library_transpose, tile_graph,
+                                         transpose_inputs)
 from ggpm_tpu_torch.ops import gather_nd, nei_sum, zero_row0_
 from ggpm_tpu_torch.ops import graph_ops
-from ggpm_tpu_torch.ops.nei_sum import (KINDS, MAX_THREADS, SM_THREADS, plan,
-                                        vec_width)
+from ggpm_tpu_torch.ops.nei_sum import (KINDS, MAX_CHUNKS, MAX_THREADS,
+                                        SM_THREADS, T_MAX_THREADS, plan,
+                                        plan_t, vec_width)
 
 torch.set_num_threads(1)
 
@@ -199,6 +206,18 @@ def test_nei_sum_plan_fills_the_card_at_serve_shapes():
     assert request.grid == SMS * _resident('tiled', 256)
 
 
+def test_transpose_plan_at_the_training_step():
+    """The depth loop's backward (375 float2 chunks a row) is one pass of
+    192 threads with 2 chunks each, one row a block; the readouts' (125
+    chunks) one chunk each, 128 threads, two rows a block."""
+    depth = plan_t(768, 6, 750, 2, SMS)
+    assert (depth.chunks, depth.tpr, depth.rpb, depth.grid, depth.k_tmpl) == \
+        (2, 192, 1, 768, 6)
+    for n, k in ((768, 1), (788, 5)):
+        p = plan_t(n, k, 250, 2, SMS)
+        assert (p.chunks, p.tpr, p.rpb, p.grid) == (1, 128, 2, -(-n // 2))
+
+
 @pytest.mark.parametrize('offset,hdim,vec', [(0, 256, 4), (2, 256, 2),
                                              (1, 256, 1), (0, 250, 2),
                                              (1, 250, 1), (0, 251, 1)])
@@ -208,3 +227,82 @@ def test_nei_sum_vec_width_follows_alignment(offset, hdim, vec):
     out = torch.zeros(2, hdim)
     assert out.data_ptr() % 16 == 0
     assert vec_width(h, out) == vec
+
+
+# -- the transpose's launch plan and the one-call yardsticks -------------
+
+# (n, k, width, vec): the training step's transpose calls (the depth loop's
+# gather backward, out [768, 750] with K 6; the teacher-forced frontier's,
+# out [788, 250] with K 5, and at g's 1,024 rows; the root and node
+# readouts', out [768, 250] with K 1, and at the roots' 20 rows), then
+# ragged n, K past the templates, and widths of one pass, of a ragged
+# last chunk and of more passes than one
+T_PLAN_CASES = ([(768, 6, 750, 2), (788, 5, 250, 2), (1024, 5, 250, 2),
+                 (768, 1, 250, 2), (20, 1, 250, 2)] +
+                [(n, k, width, vec) for n in (1, 5, 263, 2113)
+                 for k, width, vec in ((1, 1, 1), (3, 3, 1), (6, 750, 2),
+                                       (2, 251, 1), (8, 256, 4), (12, 250, 2),
+                                       (0, 750, 2), (5, 2050, 2),
+                                       (9, 4100, 2))])
+
+
+def _coverage_t(p, n, cols):
+    """How often the kernel of plan ``p`` writes each (row, column chunk):
+    the loops of csrc/transpose_sum.cu.  Block b takes rows b·rpb ..
+    b·rpb + rpb - 1; thread x of a row takes the chunks c0 + i·tpr (i <
+    chunks) for c0 = x, x + tpr·chunks, ... below cols."""
+    rows = (np.arange(p.grid)[:, None] * p.rpb + np.arange(p.rpb)).ravel()
+    rows = rows[rows < n]
+    chunks = [c0 + i * p.tpr for x in range(p.tpr)
+              for c0 in range(x, cols, p.tpr * p.chunks)
+              for i in range(p.chunks) if c0 + i * p.tpr < cols]
+    return (np.bincount(rows, minlength=n),
+            np.bincount(np.array(chunks, dtype=np.int64), minlength=cols))
+
+
+@pytest.mark.parametrize('chunks', [None, *range(1, MAX_CHUNKS + 1)])
+@pytest.mark.parametrize('case', T_PLAN_CASES, ids=str)
+def test_transpose_plan_covers_each_row_and_column_once(case, chunks):
+    n, k, width, vec = case
+    cols = width // vec
+    p = plan_t(n, k, width, vec, SMS, chunks)
+    assert p.vec == vec and p.k_tmpl == (k if 1 <= k <= 8 else 0)
+    assert p.chunks == (chunks or p.chunks) and 1 <= p.chunks <= MAX_CHUNKS
+    assert p.tpr % 32 == 0 and p.tpr * p.rpb <= T_MAX_THREADS
+    assert 1 <= p.grid < 2 ** 31
+    if cols <= p.chunks * T_MAX_THREADS:
+        assert p.tpr * p.chunks >= cols          # one pass per row
+    row_count, col_count = _coverage_t(p, n, cols)
+    assert (row_count == 1).all() and (col_count == 1).all()
+
+
+@pytest.mark.parametrize('args', [(0, 6, 750, 2, None), (5, 6, 750, 4, None),
+                                  (5, -1, 750, 2, None), (5, 6, 750, 2, 0),
+                                  (5, 6, 750, 2, MAX_CHUNKS + 1)], ids=str)
+def test_transpose_plan_refuses_what_no_kernel_takes(args):
+    """No rows, a width the row does not divide into, a negative K, or a
+    count of chunks per thread that no kernel has."""
+    n, k, width, vec, chunks = args
+    with pytest.raises(ValueError):
+        plan_t(n, k, width, vec, SMS, chunks)
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_nei_sum_yardstick_is_one_call_of_the_same_function(shape):
+    """``embedding_bag`` (``kernel_bench.library_nei_sum``) computes
+    ``nei_sum``: the padding row 0 is zero, so its slots add nothing."""
+    h, graph = (torch.from_numpy(x) for x in _inputs(*shape))
+    torch.testing.assert_close(library_nei_sum(h, graph),
+                               graph_ops.nei_sum(h, graph), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize('shape', [s for s in T_SHAPES if s[3] in (1, 4)],
+                         ids=str)
+def test_transpose_yardstick_is_one_call_of_the_same_function(shape):
+    """``embedding_bag`` weighted by the mask
+    (``kernel_bench.library_transpose``) computes ``transpose_sum``, row 0
+    included, over a random table's transpose."""
+    _, t_idx, t_mask, g, div = transpose_inputs(*shape, device='cpu')
+    torch.testing.assert_close(
+        library_transpose(g, t_idx, t_mask, div)(),
+        graph_ops.transpose_sum(g, t_idx, t_mask, div), rtol=0, atol=ATOL)

@@ -750,9 +750,8 @@ def test_vae_train_cli_one_epoch(data, tmp_path):
 def test_kernel_cases_of_a_training_step(data, packed):
     """The training step's kernel cases that chip_smoke.py times
     (``kernel_bench.train_cases``) on the CPU: every call is its plain
-    version, the library yardstick computes the same function (leaving
-    row 0 aside for the transpose, which the index_add_ sums into), and
-    each bound counts bytes."""
+    version, the library yardstick computes the same function, and each
+    bound counts bytes."""
     _, pb = _model_batch(data, 3, packed)
     dev = to_device(batching.train_tables(pb), 'cpu')
     cases = kernel_bench.train_cases(dev, torch.Generator().manual_seed(0),
@@ -764,8 +763,6 @@ def test_kernel_cases_of_a_training_step(data, packed):
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
         torch.testing.assert_close((c['exact'] or c['plain'])(), ref,
                                    rtol=0, atol=1e-6)
-        if c['kernel'] == 'transpose_sum':
-            lib, ref = lib[1:], ref[1:]
         torch.testing.assert_close(lib, ref, rtol=0, atol=1e-5)
         assert c['bytes'] > 0
 
