@@ -39,28 +39,43 @@ script exits non-zero:
              HOMO/LUMO MAE against the JAX package's, and the latents
              against the port on the CPU.
 6. decode  — the same server answers ``/reconstruct`` for the 64 molecules
-             and ``/sample`` with ``{"n": 64, "seed": 0}``; the counts are
-             reset just before and read just after.  Every answer is held
-             to the JAX package's (``decode_best`` on the CPU, the same
-             checkpoint, the JAX encoder's latents, max_decode_step 150;
+             and ``/sample`` with ``{"n": 64, "seed": 0}``; both decode
+             through the turbo path (``decode_motif_turbo``: the propose
+             loop replayed from CUDA graphs, the host replaying its traces
+             with the chemistry).  Each request runs under the profiler;
+             the counts are reset just before and read just after (a
+             graph's replay adds to them the launches its capture
+             recorded).  Every answer is held to the JAX package's
+             (``decode_best`` on the CPU, the same checkpoint, the JAX
+             encoder's latents, max_decode_step 150;
              ``ggpm_tpu_torch/goldens/decode_hopv64.json``, which
              tests/test_torch_decode.py recomputes).  The rule, fixed before
              any card run: every string equals the reference's and the
              count of None is the same, except for fp32 near-ties.  For
              each string that differs, the batch is decoded again with
-             per-step logs on the card and on the port's CPU path; the first
-             step where ``Generate fragment`` falls on the other side of 0.5,
-             or where the order of the top-5 candidates differs, is printed
-             with its margin in the CPU log (|p − 0.5| or the score gap).
-             The phase passes only if every such margin is below 1e-4 and
-             at most 2 of the 128 strings differ.  It also reruns both
-             decodes directly to count their steps, and fails unless
-             ``nei_sum`` launched once per decode step (plus 2 for the
-             encode of ``/reconstruct``) and ``gather_rows`` once per
-             depth round of that encode.  Then, outside HTTP, it decodes
-             the first 120 molecules' latents at B = 120 and prints
-             molecules per second and the device's idle share
-             (``profile_serve.profile_decode``).
+             per-step logs (the exact path) on the card and on the port's
+             CPU path; the first step where ``Generate fragment`` falls on
+             the other side of 0.5, or where the order of the top-5
+             candidates differs, is printed with its margin in the CPU log
+             (|p − 0.5| or the score gap).  The phase passes only if every
+             such margin is below 1e-4 and at most 2 of the 128 strings
+             differ.  ``gather_rows`` must have launched once per depth
+             round of ``/reconstruct``'s encode.  In each request,
+             ``nei_sum_kernel``'s device launches (the profiler's, which
+             see the server thread's graph replays) and the wrapper's
+             count must both equal 2 for the encode of ``/reconstruct``,
+             plus the propose steps the turbo rounds ran (the lookahead's
+             steps past the last active one count too;
+             ``TURBO_STATS['steps_run']``), plus the steps run outside
+             the rounds (one before each graph's capture, and the exact
+             path's for samples that fell back;
+             ``TURBO_STATS['eager_steps']``); it prints rounds,
+             fallbacks, rungs and pending samples per round.  Last, outside HTTP, it
+             decodes the first 64 and the first 120 molecules' latents
+             through the turbo path and through the exact path and prints
+             a ``decode B64``/``decode B120`` line for each
+             (``profile_serve.profile_decode``: wall s, molecules/s, the
+             host's split, device busy ms, idle share, launches, rounds).
 7. train  — the canonical configuration (``prop``: LSTM, hidden = embed
              = 250, latent 24, depthT 20, batch 20, β 0.1, Adam lr 1e-3,
              clip 20) from the ``vae/`` weights of the same checkpoint,
@@ -105,10 +120,11 @@ from ggpm_tpu_torch.graph.vocab import common_atom_vocab
 from ggpm_tpu_torch.kernel_bench import (device_ms, eager_ms, floor_ms,
                                          nvidia_smi)
 from ggpm_tpu_torch.models.api import encode
-from ggpm_tpu_torch.models.decode import decode_best, sample_prior
-from ggpm_tpu_torch.ops import cuda_build, gather_rows, graph_ops, nei_sum
+from ggpm_tpu_torch.models import decode
+from ggpm_tpu_torch.models.decode import decode_best
+from ggpm_tpu_torch.ops import cuda_build, graph_ops, nei_sum
 from ggpm_tpu_torch.ops.nei_sum import KINDS, device_plan, launch
-from ggpm_tpu_torch.profile_serve import decode_steps, profile_decode
+from ggpm_tpu_torch.profile_serve import profile_decode, profiled
 from ggpm_tpu_torch.serve import GgpmServer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -157,17 +173,22 @@ def nei_sum_kinds(h, g):
 
 # every kernel of the port, keyed as ``profile_train.KERNELS`` (which holds
 # the wrappers and their launch counts): what it replaces, where it is
-# called, the paths that launch it, and the case of its row in the kernels
-# line (``readout`` of phase 4, the others of the train phase)
+# called, the paths that launch it (``decode``: the decoding requests, whose
+# ``/reconstruct`` encodes first; ``turbo``: the turbo decode's propose
+# graph), and the case of its row in the kernels line (``readout`` of phase
+# 4, the others of the train phase)
 KERNELS = {
     'nei_sum': dict(
         route='cuda', source='ggpm_tpu_torch/csrc/nei_sum.cu',
         replaces='ggpm_tpu/ops/pallas_gather.py:33', main_case='readout',
-        paths=('serve', 'decode', 'train'),
+        paths=('serve', 'decode', 'turbo', 'train'),
         call_sites=['ggpm_tpu_torch/models/encoder.py:60 (node readout)',
                     'ggpm_tpu_torch/models/encoder.py:103 (root readout)',
                     'ggpm_tpu_torch/models/decoder.py:298 (dec_topo, '
-                    'the decode frontier)',
+                    'the decode frontier: each step of the exact path, and '
+                    'each step of the turbo path\'s propose loop, '
+                    'decoder.py:440 propose_step_, replayed from a CUDA '
+                    'graph)',
                     'ggpm_tpu_torch/models/decoder.py:174 (_run_scan, the '
                     'teacher-forced frontier)']),
     'transpose_sum': dict(
@@ -300,9 +321,11 @@ def check_answers(health, enc, props, rows, model_cpu, batch):
 
 
 def decode_requests(port, rows):
-    """The decoding requests of the main path.  Returns their answers,
-    seconds and ``nei_sum`` and ``gather_rows`` launches, and the kernel
-    counts."""
+    """The decoding requests of the main path, each under the profiler.
+    Returns their answers, seconds (profiled, without the profiler's
+    processing after the request), kernel launches (the wrappers''
+    counts), ``nei_sum_kernel``'s device launches and the turbo decode's
+    ``TURBO_STATS``, and the kernel counts of both."""
     smiles = [r[0] for r in rows]
     reset_counts()
     out = {}
@@ -310,12 +333,20 @@ def decode_requests(port, rows):
                                  {'smiles': smiles}),
                                 ('sample', '/sample', SAMPLE)):
         before = read_counts()
-        t0 = time.perf_counter()
-        out[name] = dict(smiles=request(port, path, payload)['smiles'],
-                         seconds=time.perf_counter() - t0)
-        out[name]['launches'] = nei_sum.launches - before['nei_sum']
-        out[name]['gather_launches'] = (gather_rows.launches -
-                                        before['gather_rows'])
+        answer = []
+
+        def run():
+            t0 = time.perf_counter()
+            answer.append(request(port, path, payload))
+            torch.cuda.synchronize()
+            answer.append(time.perf_counter() - t0)
+        _, events = profiled(run)
+        out[name] = dict(
+            smiles=answer[0]['smiles'], seconds=answer[1],
+            launches={k: v - before[k] for k, v in read_counts().items()},
+            nei_sum_device_launches=sum(
+                e.count for e in events if 'nei_sum_kernel' in e.key),
+            turbo=dict(decode.TURBO_STATS))
     return out, read_counts()
 
 
@@ -385,9 +416,9 @@ def logs_of(model, vocab, latents):
 
 def decode_phase(model, model_cpu, vocab, rows, answers, enc, batch,
                  depth):
-    """Hold the decoding answers to the JAX reference and count their
-    steps and launches (``depth`` rounds of the depth loop an encode);
-    returns what the phase prints."""
+    """Hold the decoding answers to the JAX reference and their launches
+    to the steps the decodes ran (``depth`` rounds of the depth loop an
+    encode); returns what the phase prints."""
     with open(GOLDEN) as f:
         golden = json.load(f)
     smiles = [r[0] for r in rows]
@@ -409,38 +440,32 @@ def decode_phase(model, model_cpu, vocab, rows, answers, enc, batch,
         raise AssertionError(f'{n_differ} decoded strings differ from the '
                              f'JAX reference, at most {MAX_DIFFERING} may')
 
-    # the same decodes again, directly: their steps and launches
-    steps = {}
-    for name, run in (
-            ('reconstruct', lambda: decode_best(
-                model, vocab, common_atom_vocab, z_card,
-                max_decode_step=MAX_DECODE_STEP)),
-            ('sample', lambda: sample_prior(
-                model, vocab, common_atom_vocab, SAMPLE['n'],
-                rng=np.random.default_rng(SAMPLE['seed']),
-                max_decode_step=MAX_DECODE_STEP))):
-        before = nei_sum.launches
-        results, out = run()
-        steps[name] = decode_steps(results)
-        direct = nei_sum.launches - before
-        encodes = 1 if name == 'reconstruct' else 0
-        if not (direct == steps[name] and answers[name]['launches'] ==
-                steps[name] + 2 * encodes and out == answers[name]['smiles']
-                and answers[name]['gather_launches'] == depth * encodes):
+    # the depth loop's launches, and B1's against the steps the decode ran
+    turbo = {}
+    for name, encodes in (('reconstruct', 1), ('sample', 0)):
+        a, st = answers[name], answers[name]['turbo']
+        expected = (2 * encodes + sum(st['steps_run']) + st['eager_steps'])
+        turbo[name] = dict(
+            nei_sum_launches=a['launches']['nei_sum'],
+            nei_sum_device_launches=a['nei_sum_device_launches'],
+            expected=expected, encodes=encodes,
+            **{k: st[k] for k in ('rounds', 'fallbacks', 'rungs',
+                                  'pending_per_round', 'steps', 'steps_run',
+                                  'eager_steps')})
+        print(f'decode turbo {name} ' + json.dumps(turbo[name]), flush=True)
+        if not (a['launches']['gather_rows'] == depth * encodes and
+                a['launches']['nei_sum'] == expected ==
+                a['nei_sum_device_launches']):
             raise AssertionError(
-                f'/{name}: {answers[name]["launches"]} nei_sum and '
-                f'{answers[name]["gather_launches"]} gather_rows launches in '
-                f'the request, {direct} nei_sum in the direct decode of '
-                f'{steps[name]} steps (same answers: '
-                f'{out == answers[name]["smiles"]})')
+                f'/{name}: launches {a["launches"]}, '
+                f'{a["nei_sum_device_launches"]} nei_sum_kernel on the card; '
+                f'expected nei_sum {expected}, gather_rows '
+                f'{depth * encodes}')
     canon = [canon_smiles(s) for s in smiles]
     rec = answers['reconstruct']['smiles']
     return dict(
         {f'{n}_seconds': answers[n]['seconds'] for n in answers},
-        steps=steps, nei_sum_launches={n: answers[n]['launches']
-                                       for n in answers},
-        gather_rows_launches={n: answers[n]['gather_launches']
-                              for n in answers},
+        turbo=turbo, launches={n: answers[n]['launches'] for n in answers},
         validity={n: sum(s is not None for s in answers[n]['smiles']) /
                   len(answers[n]['smiles']) for n in answers},
         exact_reconstruction=sum(a == b for a, b in zip(rec, canon)) / len(rec),
@@ -555,9 +580,15 @@ def main() -> int:
     summary = decode_phase(model, model_cpu, vocab, rows, answers, enc,
                            batches[0], depth)
     print('decode ' + json.dumps(summary), flush=True)
-    b120 = profile_decode(model, vocab, encode(model, batches[1])[0],
-                          max_decode_step=MAX_DECODE_STEP)
-    print('decode B120 ' + json.dumps(b120), flush=True)
+    decode_profiles = {}
+    for batch in batches:
+        z = encode(model, batch)[0]
+        for path in ('turbo', 'exact'):
+            prof_d = profile_decode(model, vocab, z, path,
+                                    max_decode_step=MAX_DECODE_STEP)
+            decode_profiles[(len(z), path)] = prof_d
+            print(f'decode B{len(z)} {path} ' + json.dumps(prof_d),
+                  flush=True)
     phase('decode', t0)
 
     t0 = time.perf_counter()
@@ -569,6 +600,14 @@ def main() -> int:
     keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
             'bound_by', 'floor_ms', 'host_ms')
     kernels = []
+    # B1 inside the turbo decode's propose graph: device launches per decode
+    # of each request, and µs per launch from the profiled B64/B120 decodes
+    in_graph = dict(
+        device_launches={n: t['nei_sum_device_launches']
+                         for n, t in summary['turbo'].items()},
+        device_us_per_launch={f'B{b}': p['nei_sum_device_us_per_launch']
+                              for (b, path), p in decode_profiles.items()
+                              if path == 'turbo'})
     for name, k in KERNELS.items():
         rows_of = {**report.get(name, {}), **train_rows[name]}
         r = rows_of[k['main_case']]
@@ -580,6 +619,7 @@ def main() -> int:
             max_abs_err_all_cases=max(x['max_abs_err']
                                       for x in rows_of.values()),
             call_sites=k['call_sites'], case=k['main_case'],
+            **({'turbo_decode': in_graph} if name == 'nei_sum' else {}),
             shape=r.get('shape') or dict(h=r['h'], graph=r['graph']),
             cases={case: {key: row[key] for key in keys}
                    for case, row in rows_of.items()

@@ -11,12 +11,14 @@ loop's, are measured by ``chip_smoke.py``).
 tree tiled 64 times into one block-diagonal batch (a 4,096-molecule
 screening request), the neighbour width A swept over {1, 2, 3, 4, 6, 8} at
 the serve width, the decoder's frontier readout at B = 64 and B = 120
-(``frontier_graph``), and ragged, float4 and large random cases.  Per case
-it prints one JSON line: max abs error against the plain version, device
-ms of the kernel, of its plain version and of the one PyTorch call that
-computes the same function (``embedding_bag``), the bound (distinct rows of
-``h`` read once, ``graph`` read once, ``out`` written once, over the card's
-HBM rate) and the launch floor (a one-element launch in the same harness).
+in the exact decode's state (``frontier_graph``) and in the turbo
+decode's (``turbo_frontier_graph``), and ragged, float4 and large random
+cases.  Per case it prints one JSON line: max abs error against the plain
+version, device ms of the kernel, of its plain version and of the one
+PyTorch call that computes the same function (``embedding_bag``), the
+bound (distinct rows of ``h`` read once, ``graph`` read once, ``out``
+written once, over the card's HBM rate) and the launch floor (a
+one-element launch in the same harness).
 
 ``transpose_sum`` cases (``transpose_cases``): the four of the first HOPV
 training batch (the depth loop's gather backward and three readout
@@ -61,6 +63,7 @@ N_MOLS = 64
 DECODE_BATCHES = (64, 120)   # a /reconstruct request; the B = 120 decode
 MAX_EDGES = 500              # decode state rows per molecule (decode_motif)
 MAX_NB = 12                  # frontier readout width (IncBase.max_nb)
+TURBO_T = 150                # the turbo decode's step budget (its state rows)
 REQUEST_COPIES = 64      # 64 copies of the 64-molecule tree: 4,096 molecules
 A_SWEEP = (1, 2, 3, 4, 6, 8)
 
@@ -103,6 +106,16 @@ def frontier_graph(tree: dict) -> np.ndarray:
     return out
 
 
+def turbo_frontier_graph(tree: dict, T: int = 150) -> np.ndarray:
+    """``frontier_graph`` in the turbo decode's state layout
+    (``MotifDecoder.propose_carry``): sample b owns rows ``1 + b·(T+1)``
+    onwards, so message id i > 0 of row b becomes ``1 + b·(T+1) + 1 +
+    i mod T``."""
+    g = frontier_graph(tree).astype(np.int64)
+    base = 1 + np.arange(len(g))[:, None] * (T + 1)
+    return np.where(g > 0, base + 1 + g % T, 0).astype(np.int32)
+
+
 def tile_graph(graph: torch.Tensor, m: int, copies: int) -> torch.Tensor:
     """``copies`` copies of an index table over ``m`` rows as one
     block-diagonal table over ``copies * m`` rows: index ``i > 0`` of copy
@@ -143,6 +156,11 @@ def nei_sum_cases(tree: dict, gen: torch.Generator,
         g = torch.as_tensor(frontier_graph(dtree), device=dev)
         cases.append((f'frontier-B{g.shape[0]}',
                       random_table(gen, MAX_EDGES * g.shape[0], 250), g))
+    for dtree in decode_trees:
+        g = turbo_frontier_graph(dtree)
+        cases.append((f'turbo-frontier-B{g.shape[0]}',
+                      random_table(gen, 1 + g.shape[0] * (TURBO_T + 1), 250),
+                      torch.as_tensor(g, device=dev)))
     for name, m, hdim, n, a in (('ragged-A1-H251', 1001, 251, 37, 1),
                                 ('float4-H256', 4097, 256, 1001, 3),
                                 ('large', 32768, 256, 65536, 6)):

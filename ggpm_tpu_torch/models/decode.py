@@ -1,9 +1,9 @@
 """Batched autoregressive decoding: reconstruction and sampling (counterpart
 of ``ggpm_tpu/models/decode.py``: ``hier_topk``, the exact motif path
-``decode_motif``, ``decode_best`` and ``sample_prior``; the device-resident
-turbo path and the hier family come later).
+``decode_motif``, the device-resident turbo path ``decode_motif_turbo``,
+``decode_best`` and ``sample_prior``; the hier family comes later).
 
-The host loop grows one junction tree and one molecule per sample
+The exact path grows one junction tree and one molecule per sample
 (``models/inc_graph.py``) and makes one device call per step,
 ``MotifDecoder.dec_step_fused``, on [B]-sized tables uploaded that step.
 The call returns one packed array, fetched once: the only host sync of a
@@ -11,17 +11,32 @@ step.  Motif assembly and validity checks stay on the host, in the port's
 pure-Python chemistry.  The assembly scorer is candidate-independent for the
 motif decoder, so candidates are tried in the reference's stable
 enumeration order with no device call.
+
+The turbo path runs the whole loop on the device (``MotifDecoder.
+propose_step_``, with a tensorised assembly oracle over ``_assm_tables``)
+and fetches one decision trace per round, which the host replays with the
+real chemistry (``_replay_pinned``); samples where the chemistry disagrees
+re-enter the next round with their executed prefix pinned.  On the card a
+``Proposer`` replays each step from a captured CUDA graph.
+``decode_best`` sends greedy decodes without per-step logs there, as the
+JAX package does; the two paths give the same SMILES.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import threading
+import time
+import weakref
+from collections import OrderedDict, deque
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..graph.vocab import PairVocab, Vocab
+from ..ops.gather_rows import gather_rows
+from ..ops.nei_sum import nei_sum, transpose_sum
 from .inc_graph import IncGraph, IncTree
 
 
@@ -261,14 +276,740 @@ def decode_motif(model, vocab: PairVocab, avocab: Vocab, root_vecs,
     return results, smiles_out
 
 
+ORACLE_SLOTS = 24          # motifs larger than this get no-opinion treatment
+ORACLE_ATOMS = 1024        # per-sample atom-id capacity of the device oracle
+_FV_BIG = 63               # "unlimited valence" sentinel (max_valence == 0)
+
+# diagnostics of the last ``decode_motif_turbo`` call: the JAX package's
+# keys (rounds, batch, fallbacks, pending per round, rungs) and, per
+# dispatched round, the steps with a sample active (``steps``, the JAX
+# loop's trip count), the steps the device ran (``steps_run``: up to the
+# lookahead past ``steps``), and the host's seconds waiting for the trace
+# (``wait_s``) and replaying it (``replay_s``); ``eager_steps`` counts the
+# steps run outside the rounds: one before each graph's capture, and the
+# exact path's for samples that fell back.  Each step launches B1 once.
+TURBO_STATS: dict = {}
+
+# the turbo decode on the card, chosen by ``profile_serve.propose_sweep``
+# (PERF.md, section 6): steps queued ahead of the host's last check of the
+# loop's alive flag (one step a graph: a host check costs less than the
+# idle steps a longer block runs past the loop's end), and the scan-length
+# rungs below max_decode_step (none: the loop stops at the longest decode
+# anyway, and a rung only adds rounds).  On the CPU a step is checked at
+# once, and the ladder is the JAX package's CPU default.
+CUDA_LOOKAHEAD = 1
+CUDA_LADDER = ()
+CPU_LADDER = (64,)
+_PROPOSERS_MAX = 6         # captured graphs kept (rung x width)
+_COUNTED = (nei_sum, transpose_sum, gather_rows)   # kernel launch counts
+
+_TABLES: Dict[int, tuple] = {}
+_PROPOSERS: "OrderedDict" = OrderedDict()
+_lock = threading.RLock()
+
+
+def _assm_tables_np(vocab: PairVocab, avocab: Vocab) -> Dict[str, np.ndarray]:
+    """Per-icls motif tables of the device-side assembly oracle (JAX
+    decode.py:606-905, whose docstring describes every array): a
+    tensorised model of ``IncGraph.get_assm_cands`` + ``try_add_mol``, the
+    hier-decode columns, and the packed views ``cpack`` [V, 10], ``ppack``
+    [V, 3 + 7S], ``bpack`` [V, 8 + 5S], ``apack`` and ``bondpack``."""
+    from ..chem import get_mol_shared
+    from ..chem.elements import max_valence
+    from ..graph.chemutils import get_anchor_smiles
+    from ..graph.mol_graph import bond_type_index
+    from .inc_graph import is_anchor_self
+    S = ORACLE_SLOTS
+    n = vocab.size()[1]
+    n_at = np.zeros(n, np.int32)
+    isz_t = np.ones(n, np.int32)
+    fail = np.zeros(n, bool)
+    noop = np.zeros(n, bool)
+    sym = np.zeros(n, bool)
+    stype = np.full((n, S), -1, np.int32)
+    bused = np.zeros((n, S), bool)
+    bfv = np.zeros((n, S), np.int32)
+    adj = np.zeros((n, S, S), np.int8)
+    appos = np.zeros((n, 2), np.int32)
+    apbond = np.zeros(n, np.int32)
+    needs = np.zeros((n, 2), np.int32)
+    ctype = np.full((n, 2), -1, np.int32)
+
+    def type_idx(a):
+        try:
+            return avocab[(a.symbol, a.charge)]
+        except KeyError:
+            return -1
+
+    def parse(i):
+        try:
+            return get_mol_shared(vocab.get_ismiles(i))
+        except Exception:   # an unparseable motif: the oracle abstains
+            return None
+
+    for i in range(n):
+        emol = parse(i)
+        if emol is None:
+            fail[i] = True
+            noop[i] = True
+            continue
+        na = emol.num_atoms
+        n_at[i] = min(na, S)
+        if na > S:
+            noop[i] = True
+            continue
+        types = [type_idx(a) for a in emol.atoms]
+        if any(t < 0 for t in types):
+            noop[i] = True
+        stype[i, :na] = types
+        for j, a in enumerate(emol.atoms):
+            # birth-used: every atom but map-2 ones, and none of a singleton
+            bused[i, j] = a.map_num != 2 and na > 1
+            mv = max_valence(a.symbol, a.charge)
+            if mv == 0:
+                bfv[i, j] = _FV_BIG
+            else:
+                # grafted atoms keep symbol and charge only: no explicit Hs
+                bonded = sum(b.order for b in emol.bonds
+                             if b.a1 == j or b.a2 == j)
+                bfv[i, j] = max(mv - bonded, 0)
+        for b in emol.bonds:
+            adj[i, b.a1, b.a2] = b.order
+            adj[i, b.a2, b.a1] = b.order
+
+        if na == 1:
+            isz_t[i] = 1
+            appos[i] = (0, 0)
+            ctype[i] = (types[0], types[0])
+            continue
+        attach = [j for j, a in enumerate(emol.atoms) if a.map_num == 1]
+        isz = len(attach)
+        if isz == 1:
+            a0 = a1 = attach[0]
+        elif isz == 2:
+            a0, a1 = attach
+            try:
+                s0 = get_anchor_smiles(emol, a0, by_index=True)
+                s1 = get_anchor_smiles(emol, a1, by_index=True)
+                sym[i] = s0 == s1
+            except Exception:
+                noop[i] = True
+        else:
+            anchors = [a for a in attach if is_anchor_self(emol, a, attach)]
+            if len(anchors) != 2:
+                fail[i] = True
+                continue
+            a0, a1 = anchors
+            noop[i] = True           # >2-point attachment: oracle abstains
+        isz_t[i] = max(isz, 1)
+        appos[i] = (a0, a1)
+        ctype[i] = (types[a0], types[a1])
+        ap_set = set(attach)
+        for b in emol.bonds:
+            for (x, y) in ((b.a1, b.a2), (b.a2, b.a1)):
+                if x in (a0, a1) and y not in ap_set:
+                    needs[i, 0 if x == a0 else 1] += b.order
+                    if isz == 1:
+                        break            # single endpoint: count once
+        apbond[i] = adj[i, a0, a1] if isz >= 2 else 0
+
+    # newrank: each slot's rank among the motif's non-attach atoms, which
+    # add_mol numbers in motif-atom order; is_att: an attachment endpoint
+    newrank = np.zeros((n, S), np.int32)
+    is_att = np.zeros((n, S), bool)
+    for i in range(n):
+        att = {int(appos[i, 0])}
+        if isz_t[i] >= 2:
+            att.add(int(appos[i, 1]))
+        r = 0
+        for j in range(S):
+            if j in att and n_at[i] > 0:
+                is_att[i, j] = True
+            else:
+                newrank[i, j] = r
+                r += 1
+
+    # the hier decode's columns (device-side add_mol and assembly scoring)
+    BMAX = S + 6
+    av = np.zeros((n, S), np.int32)
+    map1 = np.zeros((n, S), bool)
+    dst_att = np.zeros((n, S), bool)
+    b_a = np.zeros((n, BMAX), np.int32)
+    b_b = np.zeros((n, BMAX), np.int32)
+    b_bt = np.zeros((n, BMAX), np.int32)
+    b_anch = np.zeros((n, BMAX), bool)
+    nbond = np.zeros(n, np.int32)
+    a_icls = np.zeros((n, 2), np.int32)
+    n_anch = np.ones(n, np.int32)
+    poison = np.zeros(n, bool)
+    for i in range(n):
+        emol = parse(i)
+        if emol is None or emol.num_atoms > S:
+            poison[i] = True
+            continue
+        na = emol.num_atoms
+        attach = [j for j, a in enumerate(emol.atoms) if a.map_num == 1]
+        if na > 1 and len(attach) > 2:
+            poison[i] = True
+            continue
+        for j, a in enumerate(emol.atoms):
+            try:
+                av[i, j] = avocab[(a.symbol, a.charge)]
+            except KeyError:
+                av[i, j] = 0
+            map1[i, j] = a.map_num == 1
+            dst_att[i, j] = is_att[i, j] or map1[i, j]
+        ap = (int(appos[i, 0]), int(appos[i, 1]))
+        for k, b in enumerate(emol.bonds[:BMAX]):
+            b_a[i, k], b_b[i, k] = b.a1, b.a2
+            b_bt[i, k] = bond_type_index(emol, b)
+            b_anch[i, k] = isz_t[i] >= 2 and {b.a1, b.a2} == set(ap)
+        nbond[i] = min(len(emol.bonds), BMAX)
+        if len(emol.bonds) > BMAX:
+            poison[i] = True
+        smiles = vocab.vocab[i][0]
+        isz = int(isz_t[i])
+        if na == 1 or isz == 1:
+            anchor_smi = [vocab.get_ismiles(i)]
+        else:
+            try:
+                anchor_smi = [
+                    get_anchor_smiles(emol, int(appos[i, 0]), by_index=True),
+                    get_anchor_smiles(emol, int(appos[i, 1]), by_index=True)]
+            except Exception:
+                anchor_smi = []
+                poison[i] = True
+        n_anch[i] = min(len(anchor_smi), 2) or 1
+        for k, a_s in enumerate(anchor_smi[:2]):
+            try:
+                a_icls[i, k] = vocab[(smiles, a_s)][1]
+            except Exception:
+                a_icls[i, k] = 0
+
+    # packed views: one gather per index role in the propose step
+    cpack = np.stack([isz_t, fail, noop, sym, ctype[:, 0], ctype[:, 1],
+                      needs[:, 0], needs[:, 1], apbond, poison],
+                     axis=1).astype(np.int32)
+    sidx_np = np.arange(S)[None, :]
+    pn_np = n_at[:, None]
+    nxt_np = np.where(sidx_np + 1 >= pn_np, 0, sidx_np + 1).astype(np.int32)
+    prv_np = np.where(sidx_np == 0, np.maximum(pn_np - 1, 0),
+                      sidx_np - 1).astype(np.int32)
+    adj32 = adj.astype(np.int32)
+    ppack = np.concatenate(
+        [np.stack([n_at, appos[:, 0], appos[:, 1]], axis=1), stype,
+         np.take_along_axis(stype, nxt_np, 1),
+         np.take_along_axis(stype, prv_np, 1),
+         np.take_along_axis(adj32, nxt_np[:, :, None], 2)[:, :, 0],
+         np.take_along_axis(adj32, prv_np[:, :, None], 2)[:, :, 0],
+         nxt_np, prv_np], axis=1).astype(np.int32)
+    bpack = np.concatenate(
+        [np.stack([n_at, isz_t, noop, apbond, needs[:, 0], appos[:, 0],
+                   appos[:, 1], nbond], axis=1),
+         bused, bfv, newrank, is_att, av], axis=1).astype(np.int32)
+    apack = np.concatenate([a_icls, n_anch[:, None]], axis=1).astype(np.int32)
+    bondpack = np.stack([b_a, b_b, b_bt, b_anch.astype(np.int32)],
+                        axis=2).astype(np.int32)
+    return dict(
+        n_at=n_at, isz=isz_t, fail=fail, noop=noop, sym=sym, stype=stype,
+        bused=bused, bfv=bfv, adj=adj32, appos=appos, apbond=apbond,
+        needs=needs, ctype=ctype, newrank=newrank, is_att=is_att, av=av,
+        map1=map1, dst_att=dst_att, b_a=b_a, b_b=b_b, b_bt=b_bt,
+        b_anch=b_anch, nbond=nbond, a_icls=a_icls, n_anch=n_anch,
+        poison=poison, cpack=cpack, ppack=ppack, bpack=bpack, apack=apack,
+        bondpack=bondpack)
+
+
+def _vocab_entry(vocab: PairVocab, avocab: Vocab) -> dict:
+    """The vocab's tables, built once and kept while the vocab lives (a
+    weak reference: an id can be reused once its vocab has died), with
+    their copies on each device."""
+    with _lock:
+        hit = _TABLES.get(id(vocab))
+        if hit is not None and hit[0]() is vocab:
+            return hit[1]
+        for k in [k for k, (ref, _) in _TABLES.items() if ref() is None]:
+            del _TABLES[k]
+        entry = {'np': _assm_tables_np(vocab, avocab), 'device': {}}
+        _TABLES[id(vocab)] = (weakref.ref(vocab), entry)
+        return entry
+
+
+def _assm_tables(vocab: PairVocab, avocab: Vocab, device='cpu'
+                 ) -> Dict[str, torch.Tensor]:
+    """``_assm_tables_np`` as tensors on ``device``, with the JAX package's
+    keys and dtypes."""
+    return _device_vocab(vocab, avocab, torch.device(device))[0]
+
+
+def _device_vocab(vocab: PairVocab, avocab: Vocab, device: torch.device):
+    """(oracle tables, vocab mask) on ``device``, built once per vocab."""
+    entry = _vocab_entry(vocab, avocab)
+    with _lock:
+        hit = entry['device'].get(device)
+        if hit is None:
+            tabs = {k: torch.from_numpy(v).to(device)
+                    for k, v in entry['np'].items()}
+            hit = entry['device'][device] = (
+                tabs, torch.from_numpy(vocab.mask).to(device))
+        return hit
+
+
+class Proposer:
+    """The propose loop of one model and vocab at one rung length ``T`` and
+    column width on one device: the counterpart of the JAX package's
+    ``MotifDecodeKernel.propose`` (a jitted ``dec_propose``), which the
+    turbo decode keeps per shape (``_proposer``).
+
+    It owns the loop's carry, its inputs (latents, pins, and ``u`` = 0.5:
+    the turbo path is greedy) and its trace as static tensors.  ``start``
+    copies a round's inputs in and resets the carry; each ``run_step``
+    advances one step and sets the ``alive`` flag (a sample still active
+    and ``t < T``).  With ``graph`` (CUDA tensors only) a step is one
+    replay of a captured ``torch.cuda.CUDAGraph``; it is captured at
+    construction, after one eager step on a side stream, and a failure
+    raises.  Each replay adds the kernel launches its capture recorded to
+    the wrappers' counts.  Without it the step runs eagerly.  Steps past
+    the last active one write zero rows."""
+
+    def __init__(self, model, mask: torch.Tensor,
+                 tabs: Dict[str, torch.Tensor], beam: int, T: int,
+                 width: int, graph: bool, max_nb: int = 12):
+        self.dec = model._decoder()
+        self.mask, self.tabs, self.beam = mask, tabs, beam
+        self.T, self.max_nb = T, max_nb
+        device = mask.device
+        self.rv = torch.zeros((width, self.dec.latent_size), device=device)
+        self.u = torch.full((T, width), 0.5, device=device)  # greedy
+        self.pins = torch.zeros((3, T, width), dtype=torch.int64,
+                                device=device)
+        self.carry = self.dec.propose_carry(
+            width, T, tabs['stype'].shape[1], ORACLE_ATOMS, max_nb, device)
+        self.trace = torch.zeros((T, width, 5 + 3 * beam), device=device)
+        self.alive = torch.zeros(1, dtype=torch.bool, device=device)
+        self.graph = None
+        self.replay_launches: list = []
+        if graph:
+            self._capture()
+
+    def _step(self) -> None:
+        self.dec.propose_step_(
+            self.carry, self.rv, self.mask, self.u, self.pins[0],
+            self.pins[1], self.pins[2], self.tabs, self.trace, self.beam,
+            self.T, self.max_nb)
+        cy = self.carry
+        self.alive.copy_((cy['sp'] > 0).any() & (cy['t'] < self.T))
+
+    def _capture(self) -> None:
+        if self.mask.device.type != 'cuda':
+            raise ValueError('a CUDA graph needs CUDA tensors')
+        self.dec.propose_init_(self.carry, self.rv, self.mask, self.tabs)
+        side = torch.cuda.Stream(self.mask.device)
+        side.wait_stream(torch.cuda.current_stream(self.mask.device))
+        with torch.cuda.stream(side):
+            self._step()         # builds and loads the kernels, warms caches
+        torch.cuda.current_stream(self.mask.device).wait_stream(side)
+        before = [w.captured for w in _COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._step()
+        self.replay_launches = [(w, w.captured - n)
+                                for w, n in zip(_COUNTED, before)
+                                if w.captured > n]
+        self.graph = graph
+
+    def start(self, root_vecs: torch.Tensor, pins: np.ndarray) -> None:
+        """Queue a round: latents [width, latent] on the device and pins
+        [3, T, width] (op, clab, ilab) from the host."""
+        self.rv.copy_(root_vecs)
+        self.pins.zero_()
+        if pins.any():
+            src = torch.from_numpy(pins)
+            if self.pins.is_cuda:
+                src = src.pin_memory()
+            self.pins.copy_(src, non_blocking=True)
+        self.trace.zero_()
+        self.dec.propose_init_(self.carry, self.rv, self.mask, self.tabs)
+
+    def run_step(self) -> None:
+        if self.graph is None:
+            self._step()
+            return
+        self.graph.replay()
+        for w, n in self.replay_launches:
+            w.launches += n
+
+
+def _proposer(model, vocab: PairVocab, mask, tabs, beam: int, T: int,
+              width: int) -> Proposer:
+    """The ``Proposer`` of this shape, kept in a small LRU (each holds its
+    carry and, on the card, a graph's memory pool), keyed like the JAX
+    package's ``_get_kernel``; the entry keeps the model and vocab alive so
+    that their ids are not reused.  A capture's eager step counts in
+    ``TURBO_STATS['eager_steps']``."""
+    cuda = mask.device.type == 'cuda'
+    key = (id(model), id(vocab), beam, T, width, str(mask.device))
+    with _lock:
+        hit = _PROPOSERS.get(key)
+        if hit is not None:
+            _PROPOSERS.move_to_end(key)
+            return hit[0]
+        prop = Proposer(model, mask, tabs, beam, T, width, graph=cuda)
+        TURBO_STATS['eager_steps'] += cuda
+        _PROPOSERS[key] = (prop, model, vocab)
+        while len(_PROPOSERS) > _PROPOSERS_MAX:
+            _PROPOSERS.popitem(last=False)
+        return prop
+
+
+class _Round:
+    """One dispatched propose round: its steps run on the device while the
+    host checks the alive flag of each, ``lookahead`` steps behind the
+    newest queued; when a flag reads false, the trace is copied to pinned
+    host memory (``non_blocking``) and a CUDA event marks its arrival."""
+
+    def __init__(self, prop: Proposer, root_vecs: torch.Tensor,
+                 pins: np.ndarray, lookahead: int):
+        self.prop, self.rv, self.pins = prop, root_vecs, pins
+        self.lookahead = lookahead
+        self.cuda = prop.mask.device.type == 'cuda'
+        self.started = self.finished = False
+        self.queued = self.checked = 0
+        self.flags: list = []
+        self.out = self.done = None
+
+    def _queue_step(self) -> None:
+        p = self.prop
+        p.run_step()
+        self.queued += 1
+        if self.cuda:
+            flag = torch.empty(1, dtype=torch.bool, pin_memory=True)
+            flag.copy_(p.alive, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            self.flags.append((flag, ev))
+        else:
+            self.flags.append((bool(p.alive.item()), None))
+
+    def advance(self, block: bool) -> bool:
+        """Queue and check steps; returns True once the trace's copy is
+        queued.  Without ``block`` it stops at the first flag that has not
+        arrived yet."""
+        if not self.started:
+            self.started = True
+            self.prop.start(self.rv, self.pins)
+        T = self.prop.T
+        while True:
+            while self.queued < T and self.queued <= self.checked + \
+                    self.lookahead:
+                self._queue_step()
+            flag, ev = self.flags[self.checked]
+            if ev is not None:
+                if not block and not ev.query():
+                    return False
+                ev.synchronize()
+                flag = bool(flag[0])
+            self.checked += 1
+            if not flag or self.checked == T:
+                self._finish()
+                return True
+
+    def _finish(self) -> None:
+        p, cy = self.prop, self.prop.carry
+        outs = (p.trace, cy['root_cls'], cy['root_icls'], cy['n_run'])
+        if self.cuda:
+            host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                    for o in outs]
+            for h, o in zip(host, outs):
+                h.copy_(o, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record()
+        else:
+            host, self.done = [o.clone() for o in outs], None
+        self.out = host
+        self.finished = True
+
+    def result(self):
+        """(packed [T, width, C], root_cls, root_icls, steps active) as
+        numpy, once the copy has arrived."""
+        if self.done is not None:
+            self.done.synchronize()
+        packed, rc, ri, n_run = (o.numpy() for o in self.out)
+        return packed, rc, ri, int(n_run[0])
+
+
+class _RoundQueue:
+    """Dispatched rounds, run on the device one after another in the order
+    they were queued (one ``Proposer`` per shape is shared by the rounds,
+    so they cannot overlap).  ``pump`` advances without waiting and is
+    called by the host between the samples it replays, so the card works
+    on the next round while the host replays the last; ``wait`` blocks
+    until a round's trace is on the host."""
+
+    def __init__(self):
+        self.rounds: deque = deque()
+
+    def submit(self, rnd: _Round) -> None:
+        self.rounds.append(rnd)
+        self.pump()
+
+    def pump(self) -> None:
+        while self.rounds and self.rounds[0].advance(block=False):
+            self.rounds.popleft()
+
+    def wait(self, rnd: _Round):
+        while not rnd.finished:
+            if self.rounds[0].advance(block=True):
+                self.rounds.popleft()
+        self.pump()              # start the next round before the fetch
+        return rnd.result()
+
+
+class _ReplayState:
+    """Live single-sample chemistry state carried across turbo rounds (JAX
+    decode.py:908): a re-entering sample's pinned prefix replays exactly
+    as before, so the resolved state lives here and the next round's
+    replay resumes at ``t = len(pins)``."""
+
+    __slots__ = ('tree', 'graph', 'stack', 'pins', 'seeded')
+
+    def __init__(self, vocab, avocab, max_nodes, max_edges, max_nb):
+        self.tree = IncTree(1, max_nodes=max_nodes, max_edges=max_edges,
+                            max_nb=max_nb)
+        self.graph = IncGraph(avocab, 1, max_nodes=max_nodes,
+                              max_edges=max_edges + 100)
+        self.stack: List[int] = []
+        self.pins: List[tuple] = []
+        self.seeded = False
+
+
+def _replay_pinned(trace_b, root_cls_b, root_icls_b, rs: _ReplayState,
+                   vocab: PairVocab, beam: int, final: bool = True):
+    """Replay one sample's device decision trace with real chemistry,
+    resuming from ``rs`` (JAX decode.py:930-1010).  Pin ops: 1 = expand
+    committing (clab, ilab), 2 = backtrack, 3 = expand then forced
+    backtrack.  Returns ``('done', smiles)``; ``('diverge', None)`` when the
+    chemistry committed another motif than the device (resolved the exact
+    path's way and recorded as the last pin); or ``('continue', None)`` when
+    a short rung's trace ran out with the stack alive and not ``final``."""
+    tree, graph, stack = rs.tree, rs.graph, rs.stack
+
+    if not rs.seeded:
+        rs.seeded = True
+        clab, ilab = int(root_cls_b), int(root_icls_b)
+        super_root = tree.add_node()
+        root_idx = tree.add_node((clab, ilab))
+        tree.add_edge(super_root, root_idx)
+        stack.append(root_idx)
+        try:
+            new_atoms, new_bonds, attached = graph.add_mol(
+                0, vocab.get_ismiles(ilab), [], 0)
+        except Exception:
+            # an ungraftable root fragment: no root retry, no molecule
+            return 'done', None
+        tree.register_cgraph(root_idx, new_atoms, new_bonds, attached)
+
+    T = trace_b.shape[0]
+    for t in range(len(rs.pins), T):
+        if not stack:
+            break
+        if trace_b[t, 1] > 0.5:
+            parent = stack[-1]
+            new_node = tree.add_node()
+            tree.add_edge(parent, new_node, (parent, new_node, 0))
+            stack.append(new_node)
+            cls_topk = trace_b[t, 2 + beam:2 + 2 * beam].astype(np.int32)
+            icls_topk = trace_b[t, 2 + 2 * beam:2 + 3 * beam].astype(np.int32)
+            dev_j = int(trace_b[t, 2 + 3 * beam])   # -1: predicted op 3
+            ok = _try_assemble(tree, graph, vocab, 0, new_node, parent,
+                               range(beam), cls_topk, icls_topk, None)
+            if ok is None:
+                _forced_backtrack(tree, [stack], 0)
+                rs.pins.append((3, int(cls_topk[0]), int(icls_topk[0])))
+                if dev_j == -1:
+                    continue      # the oracle predicted it
+                return 'diverge', None
+            rs.pins.append((1, int(ok[0]), int(ok[1])))
+            if 0 <= dev_j < beam and int(cls_topk[dev_j]) == ok[0] \
+                    and int(icls_topk[dev_j]) == ok[1]:
+                continue          # the device committed the same motif
+            return 'diverge', None
+        child = stack.pop()
+        if stack:
+            top = stack[-1]
+            tree.add_edge(child, top, (child, top, tree.in_degree(top)))
+        rs.pins.append((2, 0, 0))
+    if stack and not final:
+        return 'continue', None
+    smiles = graph.get_smiles()
+    return 'done', (smiles[0] if smiles else None)
+
+
+@torch.inference_mode()
+def decode_motif_turbo(model, vocab: PairVocab, avocab: Vocab, root_vecs,
+                       greedy: bool = True, max_decode_step: int = 150,
+                       beam: int = 5, max_nodes: int = 400,
+                       max_edges: int = 500,
+                       rng: Optional[np.random.Generator] = None,
+                       log_steps: bool = False, max_rounds: int = 16,
+                       ladder: Optional[tuple] = None,
+                       chunk: Optional[int] = None):
+    """The device-resident speculative decode of the motif family (JAX
+    decode.py:1014-1174).  Each round runs the whole loop on the device
+    (``MotifDecoder.propose_step_``) and fetches one decision trace; the
+    host replays it with the real chemistry.  Samples where the chemistry
+    disagrees re-enter with their executed prefix pinned; after
+    ``max_rounds`` rounds the rest take the exact path (counted in
+    ``TURBO_STATS['fallbacks']``).  Stochastic decoding takes the exact
+    path.
+
+    ``ladder``: scan-length rungs below ``max_decode_step``; a sample whose
+    stack outlives a short rung re-enters at a longer one.  ``None`` is
+    ``CPU_LADDER`` on the CPU and ``CUDA_LADDER`` on the card.
+    ``chunk``: decode in chunks of this many samples; every chunk's first
+    round is queued before the first trace is fetched, and the card runs
+    the next round while the host replays the last.
+
+    Returns (results, smiles) like ``decode_motif``; per-step logs exist
+    only for samples that fell back to the exact path."""
+    if not greedy:
+        return decode_motif(model, vocab, avocab, root_vecs, greedy=False,
+                            max_decode_step=max_decode_step, beam=beam,
+                            max_nodes=max_nodes, max_edges=max_edges,
+                            rng=rng, log_steps=log_steps)
+    device = next(model._decoder().parameters()).device
+    if not isinstance(root_vecs, torch.Tensor):
+        root_vecs = torch.from_numpy(np.array(root_vecs, dtype=np.float32))
+    root_vecs = root_vecs.to(device, torch.float32)
+    with _lock:
+        return _turbo(model, vocab, avocab, root_vecs, device,
+                      max_decode_step, beam, max_nodes, max_edges, rng,
+                      log_steps, max_rounds, ladder, chunk)
+
+
+def _turbo(model, vocab, avocab, root_vecs, device, T, beam, max_nodes,
+           max_edges, rng, log_steps, max_rounds, ladder, chunk):
+    cuda = device.type == 'cuda'
+    batch_size = root_vecs.shape[0]
+    tabs, mask = _device_vocab(vocab, avocab, device)
+    if ladder is None:
+        ladder = CUDA_LADDER if cuda else CPU_LADDER
+    ahead = CUDA_LOOKAHEAD if cuda else 0
+
+    states = [_ReplayState(vocab, avocab, max_nodes, max_edges, 12)
+              for _ in range(batch_size)]
+    smiles_out: List[Optional[str]] = [None] * batch_size
+    results: List[list] = [[] for _ in range(batch_size)]
+    TURBO_STATS.clear()
+    TURBO_STATS.update(rounds=0, batch=batch_size, fallbacks=0,
+                       pending_per_round=[], rungs=[], steps=[],
+                       steps_run=[], eager_steps=0, wait_s=[], replay_s=[])
+    rungs = sorted({min(r, T) for r in ladder} | {T})
+
+    if chunk is None or chunk >= batch_size:
+        chunk = batch_size
+    chunks = [{'pending': list(range(i, min(i + chunk, batch_size))),
+               'rnd': 0, 'size': chunk}
+              for i in range(0, batch_size, chunk)]
+    queue = _RoundQueue()
+
+    def dispatch(ch):
+        """Queue one propose round for a chunk."""
+        pending, rnd = ch['pending'], ch['rnd']
+        # the smallest rung every pending sample's pinned prefix fits
+        # strictly under, else the full budget
+        max_pins = max((len(states[b].pins) for b in pending), default=0)
+        T_r = next((r for r in rungs if r > max_pins), T)
+        ch['final'] = T_r == T
+        TURBO_STATS['rungs'].append(T_r)
+        # at most three widths per rung: the chunk's, a 16-wide straggler
+        # width, and (padded up to the chunk's) a short last chunk
+        n_p = len(pending)
+        nb = 16 if (rnd and n_p <= 16 and ch['size'] > 16) else ch['size']
+        cols = pending + [pending[0]] * (nb - n_p)
+        pins = np.zeros((3, T_r, nb), dtype=np.int64)
+        for j, b in enumerate(cols[:n_p]):
+            for t, pin in enumerate(states[b].pins):
+                pins[:, t, j] = pin
+        prop = _proposer(model, vocab, mask, tabs, beam, T_r, nb)
+        rv = root_vecs.index_select(
+            0, torch.as_tensor(cols, dtype=torch.int64, device=device))
+        ch['round'] = _Round(prop, rv, pins, ahead)
+        queue.submit(ch['round'])
+        ch['cols'], ch['n_p'] = cols, n_p
+        ch['rnd'] = rnd + 1
+        TURBO_STATS['rounds'] = max(TURBO_STATS['rounds'], ch['rnd'])
+        TURBO_STATS['pending_per_round'].append(n_p)
+
+    inflight = deque()
+    for ch in chunks:                 # every chunk's first round, then fetch
+        dispatch(ch)
+        inflight.append(ch)
+    exhausted: List[int] = []
+    while inflight:
+        ch = inflight.popleft()
+        t0 = time.perf_counter()
+        packed, root_cls, root_icls, n_run = queue.wait(ch['round'])
+        TURBO_STATS['wait_s'].append(time.perf_counter() - t0)
+        TURBO_STATS['steps'].append(n_run)
+        TURBO_STATS['steps_run'].append(ch['round'].queued)
+        ch['round'] = None
+        t0 = time.perf_counter()
+        still = []
+        for j, b in enumerate(ch['cols'][:ch['n_p']]):
+            status, out = _replay_pinned(
+                packed[:, j, :], root_cls[j], root_icls[j], states[b],
+                vocab, beam, final=ch['final'])
+            if status == 'done':
+                smiles_out[b] = out
+            else:         # 'diverge' or 'continue': the pins grew
+                still.append(b)
+            queue.pump()
+        TURBO_STATS['replay_s'].append(time.perf_counter() - t0)
+        ch['pending'] = still
+        if not still:
+            continue
+        if ch['rnd'] >= max_rounds:
+            exhausted += still
+        else:
+            dispatch(ch)
+            inflight.append(ch)
+
+    TURBO_STATS['fallbacks'] = len(exhausted)
+    if exhausted:
+        # the round cap: deep chains of divergences take the exact path
+        res2, sm2 = decode_motif(
+            model, vocab, avocab,
+            root_vecs.index_select(0, torch.as_tensor(exhausted,
+                                                      device=device)),
+            greedy=True, max_decode_step=T, beam=beam, max_nodes=max_nodes,
+            max_edges=max_edges, rng=rng, log_steps=log_steps)
+        for j, b in enumerate(exhausted):
+            smiles_out[b] = sm2[j]
+            results[b] = res2[j]
+        TURBO_STATS['eager_steps'] += decode_steps(res2)
+    return results, smiles_out
+
+
+def decode_steps(results) -> int:
+    """Device steps an exact decode made, from its per-step entries
+    (``decode_motif``'s results, with or without logs): one for the root,
+    one per step, and one empty entry more if the loop ended because every
+    sample had finished."""
+    n = len(results[0]) - 1
+    return n - 1 if all(not r[-1] for r in results) else n
+
+
 def decode_best(model, vocab: PairVocab, avocab: Vocab, root_vecs,
                 greedy: bool = True, log_steps: bool = False, **kwargs):
-    """The JAX package's ``decode_best`` surface.  The motif family takes
-    the exact path, which returns the JAX turbo path's SMILES
-    (tests/test_decode.py pins the two equal)."""
+    """The JAX package's ``decode_best`` for the motif family: greedy
+    decodes without per-step logs take the turbo path (which takes
+    ``chunk``), everything else the exact one."""
     if type(model).__name__.startswith('Hier'):
         raise NotImplementedError('the port decodes the motif family only')
-    # ``chunk`` pipelines the turbo path, which the port does not have yet
+    if greedy and not log_steps:
+        return decode_motif_turbo(model, vocab, avocab, root_vecs,
+                                  greedy=True, **kwargs)
     kwargs.pop('chunk', None)
     return decode_motif(model, vocab, avocab, root_vecs, greedy=greedy,
                         log_steps=log_steps, **kwargs)

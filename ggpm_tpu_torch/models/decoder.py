@@ -1,8 +1,8 @@
 """Motif decoder: the teacher-forced training path and the decode-step
 functions (counterpart of ``ggpm_tpu/models/decoder.py``:
 ``PredictionMLP``, ``MotifDecoder`` with its ``forward``/``mean_forward``
-losses and its ``dec_*`` API; attention and the device-resident
-``dec_propose`` arrive with later slices).
+losses, its ``dec_*`` API and the step of the device-resident
+``dec_propose``; attention arrives with a later slice).
 
 Training: ``forward`` runs the teacher-forced scan (``_run_scan``), which
 carries only the message state, then the losses (``_losses``).  The scan's
@@ -15,6 +15,8 @@ the host loop (``models/decode.py``) builds from its growing trees.  The
 message state is a pair of ``[max_edges * B, H]`` buffers whose row 0 is the
 zero padding message; ``dec_update`` writes the step's new rows in place.
 The frontier readout of ``dec_topo`` goes through the ``nei_sum`` kernel.
+The turbo decode's propose loop (``propose_step_``) runs the same steps on
+the device for the whole decode, its tree and chemistry state included.
 
 The motif and attachment embeddings are owned by the VAE and shared with
 the encoder (reference vae.py tie_embedding), so the decoder holds them
@@ -335,3 +337,336 @@ class MotifDecoder(nn.Module):
             [topo_logits[:, None], choose.float()[:, None], scores,
              cls_k.float(), icls_k.float()], dim=1)
         return state, packed
+
+    # -- device-resident decode: the propose loop (JAX decoder.py:614) -------
+    # The JAX package runs the whole loop as one ``lax.while_loop``.  Here
+    # the loop's carry is a dict of preallocated tensors that
+    # ``propose_init_`` resets and ``propose_step_`` advances in place, so
+    # that a step can be captured in a CUDA graph and replayed
+    # (``models/decode.py:Proposer``, which also runs the loop eagerly).
+    # A step makes no host sync: no ``.item()``, no ``nonzero``, no boolean
+    # indexing, no host-to-device copy.  JAX's ``mode='drop'`` scatters
+    # write to a sink column at index ``n_nodes`` of every per-node table
+    # instead, which nothing reads.
+
+    def propose_carry(self, batch_size: int, T: int, S: int, A: int,
+                      max_nb: int, device) -> Dict[str, torch.Tensor]:
+        """Zero carry of the propose loop for ``batch_size`` samples and a
+        ``T``-step budget: the message state over ``1 + B·(T+1)`` rows, the
+        per-node tables over ``T + 2`` nodes plus the sink column, the
+        oracle's per-atom free valences over ``A`` atoms of ``S``-slot
+        motifs, the stack, and the step counter ``t``."""
+        n = T + 3                         # T + 2 nodes and the sink column
+        B = batch_size
+
+        def z(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        h, c = self.rnn.init_state(1 + B * (T + 1), device)
+        return dict(
+            h=h, c=c, clab=z(B, n), ilab=z(B, n),
+            slot_used=z(B, n, S, dtype=torch.bool),
+            atom_fv=z(B, A, dtype=torch.int32), slot_atom=z(B, n, S),
+            atom_cnt=z(B), node_as2=z(B, n, dtype=torch.bool),
+            node_noop=z(B, n, dtype=torch.bool), in_deg=z(B, n),
+            agraph=z(B, n, max_nb, dtype=torch.int32), down_row=z(B, n),
+            stack=z(B, n), sp=z(B), nxt=z(B), t=z(1), n_run=z(1),
+            root_cls=z(B), root_icls=z(B),
+            base=1 + torch.arange(B, device=device) * (T + 1),
+            ar=torch.arange(B, device=device),
+            sidx=torch.arange(S, device=device))
+
+    def propose_init_(self, carry: Dict[str, torch.Tensor],
+                      root_vecs: torch.Tensor, vocab_mask: torch.Tensor,
+                      tabs: Dict[str, torch.Tensor]) -> None:
+        """Reset ``carry`` to the loop's start for latents ``root_vecs``:
+        the latent wired into each sample's first row, the root motif (the
+        masked fine argmax, reference decoder.py:914-948) and its oracle
+        state (JAX decoder.py:666-710)."""
+        for k in ('h', 'c', 'clab', 'ilab', 'slot_used', 'atom_fv',
+                  'slot_atom', 'node_as2', 'node_noop', 'in_deg', 'agraph',
+                  'down_row', 'stack', 't', 'n_run'):
+            carry[k].zero_()
+        S = carry['slot_used'].shape[2]
+        base = carry['base']
+        init = self.root_vecs_to_hidden(root_vecs)
+        carry['h'][base] = init
+        cls_l, icls_l = self.cls_logits(init, root_vecs)
+        root_cls = torch.argmax(cls_l, dim=-1)
+        root_icls = torch.argmax(icls_l + vocab_mask[root_cls], dim=-1)
+        carry['root_cls'].copy_(root_cls)
+        carry['root_icls'].copy_(root_icls)
+        carry['clab'][:, 0] = root_cls
+        carry['ilab'][:, 0] = root_icls
+        carry['slot_used'][:, 0] = tabs['bused'][root_icls]
+        carry['atom_fv'][:, :S] = tabs['bfv'][root_icls]
+        carry['slot_atom'][:, 0] = carry['sidx']
+        carry['atom_cnt'].copy_(tabs['n_at'][root_icls])
+        carry['node_noop'][:, 0] = tabs['noop'][root_icls]
+        carry['in_deg'][:, 0] = 1
+        carry['agraph'][:, 0, 0] = base.int()
+        carry['down_row'][:, 0] = base
+        carry['sp'].fill_(1)
+        carry['nxt'].fill_(1)
+
+    def propose_step_(self, carry: Dict[str, torch.Tensor],
+                      root_vecs: torch.Tensor, vocab_mask: torch.Tensor,
+                      u_seq: torch.Tensor, pin_op: torch.Tensor,
+                      pin_clab: torch.Tensor, pin_ilab: torch.Tensor,
+                      tabs: Dict[str, torch.Tensor], trace: torch.Tensor,
+                      beam: int, T: int, max_nb: int = 12) -> None:
+        """One step of the propose loop (JAX decoder.py:712-1023), in place:
+        the frontier readout and topology choice, the message update, the
+        joint top-k, the assembly oracle (the first beam candidate with a
+        feasible attachment), the tree and chemistry bookkeeping.  Writes
+        the step's packed row [B, 5 + 3·beam] into ``trace[t]``: zeros once
+        no sample is active, as the JAX loop's early exit leaves them.
+        The caller runs it for ``t < T`` only."""
+        from .decode import hier_topk
+        cy = carry
+        ar, sidx, base = cy['ar'], cy['sidx'], cy['base']
+        t = cy['t']
+        S = sidx.shape[0]
+        A = cy['atom_fv'].shape[1]
+        n_nodes = cy['clab'].shape[1] - 1          # the sink's index
+        sp, nxt, in_deg, stack = cy['sp'], cy['nxt'], cy['in_deg'], cy['stack']
+        u = u_seq[t][0]
+        p_op, p_clab, p_ilab = pin_op[t][0], pin_clab[t][0], pin_ilab[t][0]
+
+        active = (sp > 0) & (t < T)
+        any_active = active.any()
+        v = stack[ar, (sp - 1).clamp(min=0)]
+        v_clab = cy['clab'][ar, v]
+        v_ag = cy['agraph'][ar, v]
+        state = (cy['h'], cy['c'])
+
+        topo_logits = self.dec_topo(state, v_clab, v_ag, root_vecs)
+        can_exp = in_deg[ar, v] < max_nb
+        spec = (torch.sigmoid(topo_logits) > u) & can_exp
+        free = p_op == 0
+        top = stack[ar, (sp - 2).clamp(min=0)]
+        # "attempt expand" covers both a commit and a predicted forced
+        # backtrack: the oracle needs the expand message's top-k
+        choose = torch.where(free, spec, (p_op == 1) | (p_op == 3)) & active
+        bt_valid = active & ~choose & (sp >= 2)
+        bt_pos = in_deg[ar, top].clamp(max=MAX_POS - 1)
+        down_v = cy['down_row'][ar, v]
+        bt_bg = torch.where(v_ag == down_v[:, None], 0, v_ag)
+
+        row_t = base + 1 + t
+        rows = torch.where(choose | bt_valid, row_t, 0)
+        pos = torch.where(choose, 0, bt_pos)
+        bg = torch.where(choose[:, None], v_ag, bt_bg)
+        self.dec_update(state, rows, v_clab, pos, bg)
+        cls_s, icls_s = self.dec_cls(state, rows, root_vecs)
+        scores, cls_k, icls_k = hier_topk(cls_s, icls_s, vocab_mask, beam)
+
+        # ---- assembly oracle: the parent's columns, then feas_for --------
+        v_il = cy['ilab'][ar, v]
+        pp = tabs['ppack'][v_il]                       # [B, 3 + 7S]
+        p_n = pp[:, 0]
+        p_ap = pp[:, 1:3]
+        p_typ = pp[:, 3:3 + S]
+        t_nxt = pp[:, 3 + S:3 + 2 * S]
+        t_prv = pp[:, 3 + 2 * S:3 + 3 * S]
+        ab_nxt = pp[:, 3 + 3 * S:3 + 4 * S]
+        ab_prv = pp[:, 3 + 4 * S:3 + 5 * S]
+        nxt_s = pp[:, 3 + 5 * S:3 + 6 * S].long()
+        prv_s = pp[:, 3 + 6 * S:3 + 7 * S].long()
+        p_used = cy['slot_used'][ar, v]                # [B, S], a copy
+        p_slot_atom = cy['slot_atom'][ar, v]           # [B, S]
+        p_fv = torch.gather(cy['atom_fv'], 1, p_slot_atom)
+        p_as2 = cy['node_as2'][ar, v]
+        p_noop = cy['node_noop'][ar, v]
+        p_single = p_n <= 1
+
+        s_valid = sidx[None, :] < p_n[:, None]
+        fv2 = torch.gather(p_fv, 1, torch.cat([nxt_s, prv_s], dim=1))
+        fv_nxt, fv_prv = fv2[:, :S], fv2[:, S:]
+        ap0, ap1 = p_ap[:, 0:1], p_ap[:, 1:2]
+        excl_f = p_as2[:, None] & (
+            ((sidx[None, :] == ap0) & (nxt_s == ap1)) |
+            ((sidx[None, :] == ap1) & (nxt_s == ap0)))
+        excl_r = p_as2[:, None] & (
+            ((sidx[None, :] == ap0) & (prv_s == ap1)) |
+            ((sidx[None, :] == ap1) & (prv_s == ap0)))
+
+        def first(mask):
+            # the first True along the last axis (0 if none), as jnp.argmax
+            # of a boolean array
+            return torch.argmax(mask.to(torch.int32), dim=-1)
+
+        def feas_for(c_il):
+            """Feasibility and first-candidate slots of child icls
+            ``c_il`` [B, Kc] against the parent's state (JAX
+            decoder.py:787-861)."""
+            cp = tabs['cpack'][c_il]                   # [B, Kc, 10]
+            c_isz = cp[..., 0]
+            c_fail, c_noop, c_sym = (cp[..., i].bool() for i in (1, 2, 3))
+            c_t0, c_t1, c_n0, c_n1, c_apb = (cp[..., i, None]
+                                             for i in (4, 5, 6, 7, 8))
+            typ, fv = p_typ[:, None, :], p_fv[:, None, :]
+            # 1-point: any unused, type-matching slot with free valence
+            f1 = s_valid[:, None, :] & ~p_used[:, None, :] & \
+                (typ == c_t0) & (fv >= c_n0)
+            any1, first1 = f1.any(-1), first(f1)
+            # 2-point forward pairs (s, s+1 mod n)
+            ex_f = (ab_nxt[:, None, :] == 0) * c_apb
+            pair_ok = s_valid[:, None, :] & (p_n[:, None, None] >= 2)
+            ff = pair_ok & ~excl_f[:, None, :] & (typ == c_t0) & \
+                (t_nxt[:, None, :] == c_t1) & (fv >= c_n0 + ex_f) & \
+                (fv_nxt[:, None, :] >= c_n1 + ex_f)
+            anyf, firstf = ff.any(-1), first(ff)
+            # reverse pairs (a, a-1 mod n), enumerated from a = n-1 down
+            ex_r = (ab_prv[:, None, :] == 0) * c_apb
+            fr = pair_ok & ~excl_r[:, None, :] & (typ == c_t0) & \
+                (t_prv[:, None, :] == c_t1) & (fv >= c_n0 + ex_r) & \
+                (fv_prv[:, None, :] >= c_n1 + ex_r)
+            anyr = fr.any(-1)
+            lastr = S - 1 - first(torch.flip(fr, dims=(-1,)))
+            use_rev = ~c_sym & ~anyf & anyr
+            feas2 = anyf | (~c_sym & anyr)
+            feas = ~c_fail & (c_noop | p_noop[:, None] |
+                              ((c_isz == 1) & any1) | ((c_isz == 2) & feas2))
+            is2 = (c_isz == 2) & ~c_noop & ~p_noop[:, None]
+            slotA = torch.where(c_isz == 1, first1,
+                                torch.where(use_rev, lastr, firstf))
+            sel = (slotA + torch.where(use_rev, 0, S))[..., None]
+            kc = c_il.shape[1]
+            slotB = torch.gather(torch.cat([prv_s, nxt_s], dim=1)[:, None, :]
+                                 .expand(-1, kc, -1), 2, sel)[..., 0]
+            exA = torch.gather(torch.cat([ex_r, ex_f], dim=2), 2, sel)[..., 0]
+            two = c_isz == 2
+            extraA = c_n0[..., 0] + torch.where(two, exA, 0)
+            extraB = c_n1[..., 0] + torch.where(two, exA, 0)
+            return feas, slotA, slotB, extraA, extraB, is2
+
+        # one oracle call for the beam and the pinned child (column beam)
+        cand_il = torch.cat([icls_k, p_ilab[:, None]], dim=1)
+        feas_all, slotA_all, slotB_all, exA_all, exB_all, is2_all = \
+            feas_for(cand_il)
+        feasible = feas_all[:, :beam]
+        any_feas = feasible.any(dim=1)
+        j_star = first(feasible)
+        spec_clab = torch.gather(cls_k, 1, j_star[:, None])[:, 0]
+        spec_ilab = torch.gather(icls_k, 1, j_star[:, None])[:, 0]
+
+        # pinned expands commit the host's motif; free expands the first
+        # feasible beam (beam 0 if none); an infeasible free expand is a
+        # forced backtrack
+        forced_free = free & choose & ~any_feas
+        forced = ((p_op == 3) & active) | forced_free
+        new_clab = torch.where(p_op == 1, p_clab,
+                               torch.where(any_feas, spec_clab, cls_k[:, 0]))
+        new_ilab = torch.where(p_op == 1, p_ilab,
+                               torch.where(any_feas, spec_ilab, icls_k[:, 0]))
+
+        # ---- expand and backtrack bookkeeping (sink column: dropped) -----
+        nn_i = nxt.clamp(max=n_nodes - 1)
+        i_ch = torch.where(choose, nn_i, n_nodes)
+        row32 = row_t.int()
+        cy['clab'][ar, i_ch] = new_clab
+        cy['down_row'][ar, i_ch] = row_t
+        cy['agraph'][ar, i_ch, 0] = row32
+        in_deg.index_put_((ar, i_ch), torch.ones_like(nxt))  # no host scalar
+        stack[ar, torch.where(choose, sp.clamp(max=n_nodes - 1), n_nodes)] = \
+            nn_i
+        # the closing edge joins top's agraph (host add_edge); read after
+        # the new child's in-degree was set, as in the JAX step
+        slot = in_deg[ar, top].clamp(max=max_nb - 1)
+        cy['agraph'][ar, torch.where(bt_valid, top, n_nodes), slot] = row32
+        # a forced backtrack closes new->v and v->top with zero messages:
+        # only the in-degrees advance
+        close_top = bt_valid | (forced & (sp >= 2))
+        in_deg[ar, top] += close_top.long()
+        in_deg[ar, v] += forced.long()
+
+        push = choose & ~forced
+        pop = active & ~choose
+        sp += push.long() - pop.long() - forced.long()
+        nxt += choose.long()
+
+        # ---- chemistry-state bookkeeping on committed expands ------------
+        commit = choose & ~forced
+        cy['ilab'][ar, i_ch] = new_ilab
+        j_commit = torch.where(p_op == 1, beam,
+                               torch.where(any_feas, j_star, 0))[:, None]
+
+        def sel_c(x):
+            return torch.gather(x, 1, j_commit)[:, 0]
+        c_feas, slotA, slotB = sel_c(feas_all), sel_c(slotA_all), \
+            sel_c(slotB_all)
+        exA, exB, is2 = sel_c(exA_all), sel_c(exB_all), sel_c(is2_all)
+        bp = tabs['bpack'][new_ilab]                   # [B, 8 + 5S]
+        ni_noop = bp[:, 2].bool()
+        oracle_on = ~p_noop & ~ni_noop
+        do_c = commit & c_feas & oracle_on
+        do_pair = do_c & is2
+        # a pinned commit the oracle deems infeasible: its state for this
+        # node has drifted, stop predicting from it
+        mispin = commit & ~c_feas & oracle_on
+        node_noop = cy['node_noop']
+        node_noop[ar, v] = node_noop[ar, v] | mispin
+
+        # parent slots used (not for singleton parents); valence is paid on
+        # the atoms, which parent and child share
+        slot_used = cy['slot_used']
+        cur_a = torch.gather(p_used, 1, slotA[:, None])[:, 0]
+        cur_b = torch.gather(p_used, 1, slotB[:, None])[:, 0]
+        slot_used[ar, v, slotA] = torch.where(do_c & ~p_single, True, cur_a)
+        slot_used[ar, v, slotB] = torch.where(do_pair & ~p_single, True,
+                                              cur_b)
+        pa_a = torch.gather(p_slot_atom, 1, slotA[:, None])[:, 0]
+        pa_b = torch.gather(p_slot_atom, 1, slotB[:, None])[:, 0]
+        atom_fv = cy['atom_fv']
+        atom_fv[ar, pa_a] += torch.where(do_c, -exA, 0).int()
+        atom_fv[ar, pa_b] += torch.where(do_pair, -exB, 0).int()
+
+        # the child: used flags at birth; its slot->atom map follows
+        # add_mol's numbering (attach endpoints alias the parent's atoms,
+        # every other slot a fresh sequential id)
+        ch_used = torch.where(choose[:, None], bp[:, 8:8 + S].bool(),
+                              slot_used[ar, nn_i])
+        slot_used[ar, nn_i] = ch_used
+        ch_ap = bp[:, 5:7]
+        isz2c = bp[:, 1] >= 2
+        ch_bfv = bp[:, 8 + S:8 + 2 * S]
+        ch_new_atom = (cy['atom_cnt'][:, None] +
+                       bp[:, 8 + 2 * S:8 + 3 * S]).clamp(max=A - 1)
+        ch_atom = torch.where(
+            sidx[None, :] == ch_ap[:, 0:1], pa_a[:, None],
+            torch.where(isz2c[:, None] & (sidx[None, :] == ch_ap[:, 1:2]),
+                        pa_b[:, None], ch_new_atom))
+        slot_atom = cy['slot_atom']
+        slot_atom[ar, nn_i] = torch.where(choose[:, None], ch_atom,
+                                          slot_atom[ar, nn_i])
+        # birth free valences of the new atoms only; every masked slot
+        # writes to the sink atom A - 1, in no defined order among the
+        # duplicates.  That is harmless while no real atom id reaches
+        # A - 1 (ch_new_atom is clamped there): the sink is read only in
+        # masked lanes.
+        ch_valid = sidx[None, :] < bp[:, 0:1]
+        wmask = do_c[:, None] & ch_valid & ~bp[:, 8 + 3 * S:8 + 4 * S].bool()
+        wtgt = torch.where(wmask, ch_atom, A - 1)
+        atom_fv[ar[:, None], wtgt] = ch_bfv
+        n_new = bp[:, 0] - 1 - isz2c.long()
+        cy['atom_cnt'] += torch.where(do_c, n_new.clamp(min=0), 0)
+        # grafted onto an existing bond: add_mol records the anchor pair as
+        # used (inc_graph.py:195-196); exA is extraA = needs0 + raw extra
+        as2_child = do_pair & (bp[:, 3] > 0) & (exA == bp[:, 4])
+        node_as2 = cy['node_as2']
+        node_as2[ar, nn_i] = torch.where(choose, as2_child,
+                                         node_as2[ar, nn_i])
+        node_noop[ar, nn_i] = torch.where(
+            choose, ni_noop | p_noop | (commit & ~do_c), node_noop[ar, nn_i])
+
+        j_pack = torch.where(free & choose,
+                             torch.where(any_feas, j_star, -1), 0)
+        feas_bits = (feasible.long() << torch.arange(
+            beam, device=feasible.device)).sum(dim=1)
+        packed = torch.cat(
+            [topo_logits[:, None], choose.float()[:, None], scores,
+             cls_k.float(), icls_k.float(), j_pack.float()[:, None],
+             new_ilab.float()[:, None], feas_bits.float()[:, None]], dim=1)
+        trace.index_copy_(0, t, torch.where(any_active, packed, 0.0)[None])
+        cy['n_run'] += any_active.long()
+        t += 1

@@ -11,8 +11,8 @@ serve and decode encodes) the loop calls ``gather_rows`` itself.
 
 ``gather_rows`` launches the kernel for CUDA tensors and raises if it
 cannot; for CPU tensors it computes the plain version,
-``graph_ops.gather_nd``.  ``gather_rows.launches`` counts launches.
-``plan`` chooses the launch from the shapes alone.
+``graph_ops.gather_nd``.  ``gather_rows.launches`` counts launches
+(``nei_sum.count_launch``).  ``plan`` chooses the launch from the shapes alone.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 
 from . import graph_ops
 from .cuda_build import library
-from .nei_sum import MAX_GRID, transpose_sum, vec_width
+from .nei_sum import MAX_GRID, count_launch, transpose_sum, vec_width
 
 MAX_THREADS = 256          # threads per block (csrc/gather_rows.cu: kMaxThreads)
 
@@ -76,9 +76,10 @@ def launch(src: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
         err = _lib().ggpm_gather_rows_f32(
             src.data_ptr(), graph.data_ptr(), out.data_ptr(), graph.numel(),
             src.shape[1] // p.vec, p.vec, p.tpr, p.rpb, p.grid, stream)
-    if err:
-        raise RuntimeError(f'gather_rows kernel launch failed: CUDA error {err}')
-    gather_rows.launches += 1
+        if err:
+            raise RuntimeError(f'gather_rows kernel launch failed: CUDA '
+                               f'error {err}')
+        count_launch(gather_rows)
     return out
 
 
@@ -112,7 +113,7 @@ def gather_rows(src: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
     return launch(src, graph, out, p)
 
 
-gather_rows.launches = 0
+gather_rows.launches = gather_rows.captured = 0
 
 
 class _GatherNdT(torch.autograd.Function):

@@ -19,7 +19,10 @@ reach them.  ``nei_sum`` and ``transpose_sum`` launch their kernels for
 CUDA tensors and raise if they cannot; they never fall back.  For CPU
 tensors they compute the plain versions, ``graph_ops.nei_sum`` and
 ``graph_ops.transpose_sum``.  ``nei_sum.launches`` and
-``transpose_sum.launches`` count kernel launches.  ``device_plan`` /
+``transpose_sum.launches`` count the kernel launches that run
+(``count_launch``: a launch a CUDA graph capture records is counted in
+``.captured`` instead, and whoever replays the graph adds it to
+``.launches``).  ``device_plan`` /
 ``launch`` and ``device_plan_t`` / ``launch_transpose`` run a given plan,
 so a measurement can compare plans on the same inputs.
 """
@@ -167,10 +170,22 @@ def launch(h: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
             h.data_ptr(), graph.data_ptr(), out.data_ptr(), n, a,
             h.shape[1] // p.vec, KINDS.index(p.kind), p.vec, p.a_tmpl, p.tpr,
             p.rpb, p.grid, stream)
-    if err:
-        raise RuntimeError(f'nei_sum kernel launch failed: CUDA error {err}')
-    nei_sum.launches += 1
+        if err:
+            raise RuntimeError(f'nei_sum kernel launch failed: CUDA error '
+                               f'{err}')
+        count_launch(nei_sum)
     return out
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel on the current stream:
+    in ``wrapper.launches`` when it runs, in ``wrapper.captured`` when a
+    CUDA graph capture only records it (``models/decode.py:Proposer``
+    adds a capture's count to ``launches`` at each replay)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
 
 
 def nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
@@ -193,7 +208,7 @@ def nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
     return launch(h, graph, out, device_plan(h, graph, out))
 
 
-nei_sum.launches = 0
+nei_sum.launches = nei_sum.captured = 0
 
 
 # the transpose's constants (csrc/transpose_sum.cu: kMaxThreads)
@@ -283,10 +298,10 @@ def launch_transpose(g: torch.Tensor, t_idx: torch.Tensor,
             g.data_ptr(), t_idx.data_ptr(), t_mask.data_ptr(), out.data_ptr(),
             n, k, div, g.shape[1] // p.vec, p.vec, p.k_tmpl, p.chunks, p.tpr,
             p.rpb, p.grid, stream)
-    if err:
-        raise RuntimeError(f'transpose_sum kernel launch failed: CUDA error '
-                           f'{err}')
-    transpose_sum.launches += 1
+        if err:
+            raise RuntimeError(f'transpose_sum kernel launch failed: CUDA '
+                               f'error {err}')
+        count_launch(transpose_sum)
     return out
 
 
@@ -317,7 +332,7 @@ def transpose_sum(g: torch.Tensor, t_idx: torch.Tensor, t_mask: torch.Tensor,
                             device_plan_t(g, t_idx, out))
 
 
-transpose_sum.launches = 0
+transpose_sum.launches = transpose_sum.captured = 0
 
 
 class _NeiSumT(torch.autograd.Function):

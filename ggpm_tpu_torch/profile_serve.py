@@ -1,19 +1,24 @@
-"""Where the time of one ``/encode`` and of one decode goes on a GPU.
+"""Where the time of one ``/encode`` and of a decode goes on a GPU.
 
-    python -m ggpm_tpu_torch.profile_serve [--out PATH]
+    python -m ggpm_tpu_torch.profile_serve [--propose-sweep] [--out PATH]
 
 Encode: host tensorization, the encoder's wall time on the device, the
 device's busy and idle share (of the encoder alone and of the whole
 request), and the kernels by device time.  Decode (``profile_decode``): the
-greedy decode of the request's latents, as ``/reconstruct`` runs it, with
-its steps, ``nei_sum`` launches, wall time and the device's busy and idle
-share.  Prints one JSON object (and writes it to ``--out`` if given).
-Needs a CUDA device; it has no CPU mode.
+greedy decode of the first 64 and of the first 120 in-vocab HOPV
+molecules' latents through the turbo path (which ``/reconstruct`` takes)
+and through the exact path, with wall time, molecules/s, the host's split
+between chemistry and the rest, and the device's busy and idle share.
+``--propose-sweep`` adds ``propose_sweep`` at both sizes: how the turbo
+path's lookahead and ladder were chosen, and what ``chunk`` gives.  Prints one
+JSON object (and writes it to ``--out`` if given).  Needs a CUDA device;
+it has no CPU mode.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -29,12 +34,13 @@ from .data.batching import to_model_batch
 from .data.dataset import prune_to_vocab, read_csv_data
 from .graph.mol_graph import tensorize
 from .graph.vocab import common_atom_vocab
+from .models import decode, inc_graph
 from .models.api import encode
-from .models.decode import decode_best
 from .ops import nei_sum
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_MOLS = 64      # the request chip_smoke.py sends
+N_DECODE = 120   # the decode measurement (ROADMAP A1)
 REPS = 10
 
 
@@ -65,42 +71,164 @@ def top_kernels(events, reps: int = 1, n: int = 12):
                  device_us=_device_us(e) / reps) for e in top]
 
 
-def decode_steps(results) -> int:
-    """Device steps a decode made, from its per-step logs: one entry for
-    the root, one per step, and one empty entry more if the loop ended
-    because every sample had finished."""
-    n = len(results[0]) - 1
-    return n - 1 if all(not r[-1] for r in results) else n
+@contextlib.contextmanager
+def _timed(owner, name: str, acc: dict):
+    """Add the seconds spent in ``owner.name`` (a module's function or a
+    class's method, which the callers look up by name) to ``acc[name]``
+    while the block runs."""
+    fn = getattr(owner, name)
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc[name] += time.perf_counter() - t0
+    acc.setdefault(name, 0.0)
+    setattr(owner, name, wrapped)
+    try:
+        yield acc
+    finally:
+        setattr(owner, name, fn)
 
 
-def profile_decode(model, vocab, z, **decode_kwargs) -> dict:
-    """One greedy decode of latents ``z`` on the card, as ``/reconstruct``
-    runs it, after one untimed decode of the same latents (first use of the
-    shapes on the card, and of the motifs in the chemistry's caches): wall
-    time on the host clock (unprofiled, ending in a synchronize), steps,
-    ``nei_sum`` launches; then device busy time and launches from a
-    profiled repeat.  The idle share is one minus busy over the unprofiled
-    wall time."""
+def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
+                   ) -> dict:
+    """One greedy decode of latents ``z`` on the card through ``path``:
+    ``turbo`` (``decode_motif_turbo``, which ``/reconstruct`` and
+    ``/sample`` take) or ``exact`` (``decode_motif`` without logs), after
+    one untimed decode of the same latents (first use of the shapes on the
+    card, the turbo path's graph captures, the chemistry's caches).
+
+    From the timed run (host clock, ending in a synchronize): wall time,
+    molecules/s, and the host split: seconds in the chemistry
+    (``_try_assemble``) and the rest, and of the rest in writing the
+    SMILES (``IncGraph.get_smiles``); ``nei_sum`` launches; for ``exact``
+    its steps; for ``turbo`` the rounds, fallbacks, rungs, pending samples,
+    steps active and run per round, the steps run outside the rounds, and
+    the seconds waiting for traces and replaying them.  From a profiled
+    repeat: device busy time, kernel launches, and ``nei_sum_kernel``'s
+    device launches and µs per launch, beside the launches the ``nei_sum``
+    wrapper counted in it.  The idle share is one minus busy over the
+    unprofiled wall time."""
+    turbo = path == 'turbo'
+    if path not in ('turbo', 'exact'):
+        raise ValueError(f'profile_decode: no decode path {path!r}')
+
     def run():
-        out = decode_best(model, vocab, common_atom_vocab, z, greedy=True,
-                          log_steps=False, **decode_kwargs)
+        if turbo:
+            out = decode.decode_motif_turbo(model, vocab, common_atom_vocab,
+                                            z, greedy=True, **decode_kwargs)
+        else:
+            out = decode.decode_motif(model, vocab, common_atom_vocab, z,
+                                      greedy=True, log_steps=False,
+                                      **decode_kwargs)
         torch.cuda.synchronize()
         return out
 
     run()
     launches = nei_sum.launches
-    t0 = time.perf_counter()
-    results, smiles = run()
-    wall = time.perf_counter() - t0
+    with _timed(decode, '_try_assemble', {}) as acc, \
+            _timed(inc_graph.IncGraph, 'get_smiles', acc):
+        t0 = time.perf_counter()
+        results, smiles = run()
+        wall = time.perf_counter() - t0
     launches = nei_sum.launches - launches
+    stats = {k: v for k, v in decode.TURBO_STATS.items()} if turbo else {}
+    counted = nei_sum.launches
     busy_us, events = profiled(run)
-    return dict(n_mols=len(smiles), wall_s=wall, mols_per_s=len(smiles) / wall,
-                steps=decode_steps(results), nei_sum_launches=launches,
-                valid=sum(s is not None for s in smiles),
-                device_busy_ms=busy_us / 1e3,
-                device_idle_share=1.0 - busy_us / 1e6 / wall,
-                device_launches=sum(e.count for e in events),
-                top_device_kernels=top_kernels(events, n=8))
+    counted = nei_sum.launches - counted
+    nei = [e for e in events if 'nei_sum_kernel' in e.key]
+    chem = acc['_try_assemble']
+    out = dict(path=path, n_mols=len(smiles), wall_s=wall,
+               mols_per_s=len(smiles) / wall,
+               valid=sum(s is not None for s in smiles),
+               chemistry_s=chem, smiles_s=acc['get_smiles'],
+               rest_s=wall - chem,
+               device_busy_ms=busy_us / 1e3,
+               device_idle_share=1.0 - busy_us / 1e6 / wall,
+               device_launches=sum(e.count for e in events),
+               nei_sum_launches=launches,
+               nei_sum_device_launches=sum(e.count for e in nei),
+               profiled_nei_sum_launches=counted,
+               nei_sum_device_us_per_launch=(
+                   sum(_device_us(e) for e in nei) / sum(e.count for e in nei)
+                   if nei else None),
+               top_device_kernels=top_kernels(events, n=8))
+    if turbo:
+        out.update(
+            {k: stats[k] for k in ('rounds', 'fallbacks', 'rungs',
+                                   'pending_per_round', 'steps',
+                                   'steps_run', 'eager_steps', 'wait_s',
+                                   'replay_s')},
+            other_host_s=wall - sum(stats['wait_s']) - sum(stats['replay_s']))
+    else:
+        steps = decode.decode_steps(results)
+        out.update(steps=steps, ms_per_step=1e3 * wall / steps,
+                   chemistry_ms_per_step=1e3 * chem / steps)
+    return out
+
+
+def propose_sweep(model, vocab, z, T: int = 150, reps: int = 5) -> dict:
+    """How the turbo decode's schedule on the card was chosen: one free
+    propose round's wall ms over latents ``z`` replayed from a CUDA graph
+    with each lookahead (median of ``reps``, host clock ending in a
+    synchronize), with the capture's seconds and the steps active and run;
+    the same round eagerly; then a whole turbo decode's wall seconds under
+    each ladder, and unchunked against chunks of a third of the batch, in
+    turns (``reps`` each), with the seconds waiting for traces and
+    replaying them."""
+    dev = next(model.parameters()).device
+    tabs, mask = decode._device_vocab(vocab, common_atom_vocab, dev)
+    pins = np.zeros((3, T, z.shape[0]), np.int64)
+    rows = []
+    with torch.inference_mode():
+        for graph, ahead in ((False, 0), (True, 0), (True, 1), (True, 2)):
+            t0 = time.perf_counter()
+            prop = decode.Proposer(model, mask, tabs, 5, T, z.shape[0],
+                                   graph=graph)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            times = []
+            for _ in range(reps if graph else 1):
+                t0 = time.perf_counter()
+                rnd = decode._Round(prop, z, pins, ahead)
+                queue = decode._RoundQueue()
+                queue.submit(rnd)
+                *_, n_run = queue.wait(rnd)
+                times.append(1e3 * (time.perf_counter() - t0))
+            rows.append(dict(graph=graph, lookahead=ahead,
+                             capture_s=capture_s,
+                             round_ms=float(np.median(times)),
+                             steps=n_run, steps_run=rnd.queued))
+            del prop, rnd, queue
+    ladders = {}
+    for ladder in ((), (64,), (32, 64)):
+        decode.decode_motif_turbo(model, vocab, common_atom_vocab, z,
+                                  ladder=ladder, max_decode_step=T)
+        t0 = time.perf_counter()
+        decode.decode_motif_turbo(model, vocab, common_atom_vocab, z,
+                                  ladder=ladder, max_decode_step=T)
+        torch.cuda.synchronize()
+        ladders[str(ladder)] = dict(wall_s=time.perf_counter() - t0,
+                                    **{k: decode.TURBO_STATS[k] for k in (
+                                        'rounds', 'rungs', 'steps',
+                                        'steps_run')})
+    chunks = []
+    for rep in range(reps + 1):          # the first turn captures, untimed
+        for chunk in (None, -(-z.shape[0] // 3)):
+            t0 = time.perf_counter()
+            decode.decode_motif_turbo(model, vocab, common_atom_vocab, z,
+                                      max_decode_step=T, chunk=chunk)
+            torch.cuda.synchronize()
+            st = decode.TURBO_STATS
+            if rep:
+                chunks.append(dict(chunk=chunk,
+                                   wall_s=time.perf_counter() - t0,
+                                   wait_s=sum(st['wait_s']),
+                                   replay_s=sum(st['replay_s'])))
+    return dict(batch=z.shape[0], T=T, rounds=rows, ladders=ladders,
+                chunks=chunks)
 
 
 def main(argv=None) -> dict:
@@ -112,14 +240,50 @@ def main(argv=None) -> dict:
     ap.add_argument('--data', default=os.path.join(_ROOT, 'data',
                                                    'hopv15.csv'))
     ap.add_argument('--out', default=None)
+    ap.add_argument('--propose-sweep', action='store_true')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_serve needs a CUDA device')
     torch.backends.cuda.matmul.allow_tf32 = False
 
     model, vocab = load_model(args.ckpt, args.vocab, device='cuda')
-    rows = prune_to_vocab(read_csv_data(args.data), vocab,
-                          verbose=False)[:N_MOLS]
+    all_rows = prune_to_vocab(read_csv_data(args.data), vocab,
+                              verbose=False)[:N_DECODE]
+    rows = all_rows[:N_MOLS]
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    out = dict(device=smi.strip().splitlines()[0],
+               decode=decode_profiles(model, vocab, all_rows,
+                                      args.propose_sweep),
+               **encode_profile(model, vocab, rows))
+    text = json.dumps(out)
+    print(text, flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, 'w') as f:
+            f.write(text + '\n')
+    return out
+
+
+def decode_profiles(model, vocab, rows, sweep: bool) -> dict:
+    """``profile_decode`` of both paths (and ``propose_sweep`` if
+    ``sweep``) at the first 64 and at all of ``rows``."""
+    out = {}
+    for n in (N_MOLS, len(rows)):
+        batch = to_model_batch(tensorize(rows[:n], vocab, common_atom_vocab),
+                               vocab.mask, pad=False)
+        z = encode(model, batch)[0]
+        out[f'B{n}'] = {path: profile_decode(model, vocab, z, path)
+                        for path in ('turbo', 'exact')}
+        if sweep:
+            out[f'B{n}']['propose_sweep'] = propose_sweep(model, vocab, z)
+    return out
+
+
+def encode_profile(model, vocab, rows) -> dict:
+    """The encode of ``rows`` as ``/encode`` and ``/properties`` run it."""
     host_s = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -145,12 +309,8 @@ def main(argv=None) -> dict:
     # idle share from the unprofiled runs above
     busy_us, events = profiled(run, REPS)
     nei = [e for e in events if 'nei_sum_kernel' in e.key]
-    dec = profile_decode(model, vocab, encode(model, batch)[0])
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    out = dict(
-        device=smi.strip().splitlines()[0], n_mols=len(rows),
+    return dict(
+        n_mols=len(rows),
         tree_shape=dict(nodes=int(batch['tree']['fnode'].shape[0]),
                         messages=int(batch['tree']['fmess'].shape[0])),
         host_tensorize_ms=1e3 * float(np.median(host_s)),
@@ -163,15 +323,7 @@ def main(argv=None) -> dict:
         nei_sum_device_us_per_launch=(
             sum(_device_us(e) for e in nei) / sum(e.count for e in nei)
             if nei else None),
-        top_device_kernels=top_kernels(events, REPS),
-        decode=dec)
-    text = json.dumps(out)
-    print(text, flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, 'w') as f:
-            f.write(text + '\n')
-    return out
+        top_device_kernels=top_kernels(events, REPS))
 
 
 if __name__ == '__main__':
