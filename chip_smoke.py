@@ -92,6 +92,40 @@ script exits non-zero:
              plain version (max abs error at most 1e-5) and against its
              sum written out in the kernel's order (bit for bit), timed as
              in phase 4 (``kernel_bench.train_cases``).
+8. optimize — the same server answers ``/optimize`` for the 64 molecules,
+             the targets each molecule's own HOMO + 0.01 and LUMO − 0.01
+             (Hartree): ``hard`` over HTTP (the body passes the policy
+             only: the JAX defaults), ``soft`` and ``patience`` through
+             ``GgpmServer.optimize`` with the settings of
+             ``profile_serve.OPTIMIZE_SETTINGS`` (the profiled request of
+             ``profile_serve.profile_optimize``).  Each answer is held to
+             the JAX package's (``LatentOptimizer`` and ``decode_best`` on
+             the CPU from the JAX encoder's latents;
+             ``ggpm_tpu_torch/goldens/optimize_hopv64.json``, which
+             tests/test_torch_latent.py recomputes) by a rule fixed before
+             any card run: predicted HOMO/LUMO within 1e-4; the strings by
+             phase 6's rule (at most 2 of the 64 differ, each at an fp32
+             near-tie, its card and CPU logs decoded from each side's own
+             search); the iterations and each row's stop reason (delta,
+             patience) equal, except rows whose decision came within 1e-6
+             of its threshold on the CPU (the golden lists them).  In each
+             request ``nei_sum``'s launches (the wrapper's count and the
+             profiler's device events) equal 2 for the encode plus the
+             propose steps the turbo decode ran plus its eager steps (the
+             search launches none), ``gather_rows`` one per depth round,
+             ``transpose_sum`` none.  Each policy's request split
+             (``profile_serve.profile_optimize``) is printed.
+9. finetune — the prop-opt fine-tuning step from the full checkpoint
+             (``vae/`` and ``property_optim/``; β 0.1, batch 20, clip 20,
+             per-group Adam at encoder/decoder/homo/lumo lrs 1e-3, 1e-3,
+             5e-4, 5e-4: ``profile_train.finetune_trainer``) through the
+             port's ``Trainer``; the counts are reset just before and read
+             just after.  Its first 3 steps are held to the JAX package's
+             (``ggpm_tpu_torch/goldens/train_propopt_hopv.json``, which
+             tests/test_torch_propopt.py recomputes) by ``profile_train``'s
+             rule for it, fixed before any card run; then it times an
+             epoch as phase 7 does and fails unless every kernel of the
+             step launched.
 
 The line before the last is ``nvidia-smi``'s; the one before it a JSON
 object listing every kernel; the last line is
@@ -124,7 +158,10 @@ from ggpm_tpu_torch.models import decode
 from ggpm_tpu_torch.models.decode import decode_best
 from ggpm_tpu_torch.ops import cuda_build, graph_ops, nei_sum
 from ggpm_tpu_torch.ops.nei_sum import KINDS, device_plan, launch
-from ggpm_tpu_torch.profile_serve import profile_decode, profiled
+from ggpm_tpu_torch.latent.control import LatentOptimizer
+from ggpm_tpu_torch.profile_serve import (OPTIMIZE_SETTINGS, optimize_targets,
+                                          profile_decode, profile_optimize,
+                                          profiled)
 from ggpm_tpu_torch.serve import GgpmServer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -134,6 +171,10 @@ DATA = os.path.join(ROOT, 'data', 'hopv15.csv')
 GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens', 'decode_hopv64.json')
 TRAIN_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                             'train_hopv.json')
+OPT_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
+                          'optimize_hopv64.json')
+FINETUNE_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
+                               'train_propopt_hopv.json')
 N_MOLS = 64
 N_DECODE = 120           # the separate decode measurement (ROADMAP A1)
 SAMPLE = {'n': 64, 'seed': 0}
@@ -154,6 +195,8 @@ KERNEL_ATOL = 1e-5
 # the decode rule (docstring, phase 6)
 NEAR_TIE = 1e-4
 MAX_DIFFERING = 2
+# the optimize rule (docstring, phase 8)
+OPT_PRED_ATOL = 1e-4
 
 
 def nei_sum_kinds(h, g):
@@ -472,34 +515,40 @@ def decode_phase(model, model_cpu, vocab, rows, answers, enc, batch,
         differ_from_jax=differ)
 
 
-def train_phase(vocab):
-    """The training path: the golden steps, an epoch profiled, the counts
-    of the path, and the step's kernels at its shapes.  Returns what the
-    phase prints, the counts and the kernel rows."""
-    with open(TRAIN_GOLDEN) as f:
+def golden_train_epoch(name, trainer, batches, golden_path, **rule):
+    """Phases 7 and 9: the golden steps of ``trainer`` held to the JAX
+    package's, then an epoch profiled; the counts are reset just before
+    and read just after, and every kernel must have launched.  Returns the
+    profile and the counts."""
+    with open(golden_path) as f:
         golden = json.load(f)
-    trainer, _ = profile_train.canonical_trainer('cuda', vocab)
-    _, batches = profile_train.hopv_batches(vocab=vocab)
-    if len(batches) != profile_train.STEPS_PER_EPOCH:
-        raise AssertionError(f'{len(batches)} HOPV batches, need '
-                             f'{profile_train.STEPS_PER_EPOCH}')
     reset_counts()
     steps = profile_train.golden_steps('cuda', trainer, batches)
-    bad = profile_train.check_golden(steps, golden)
-    print('train golden ' + json.dumps(dict(
+    bad = profile_train.check_golden(steps, golden, **rule)
+    print(f'{name} golden ' + json.dumps(dict(
         steps=[{k: v for k, v in s.items() if k != 'update_norms'}
                for s in steps],
         update_deviation=profile_train.update_deviation(steps, golden),
         failures=bad)), flush=True)
     if bad:
-        raise AssertionError(f'training steps differ from the JAX '
+        raise AssertionError(f'{name} steps differ from the JAX '
                              f'package\'s: {bad}')
     prof = profile_train.profile_epoch(trainer, batches)
     counts = read_counts()
     if min(counts.values()) == 0:
-        raise AssertionError(f'a kernel never launched on the training '
+        raise AssertionError(f'a kernel never launched on the {name} '
                              f'path: {counts}')
-    print('train ' + json.dumps(prof), flush=True)
+    print(f'{name} ' + json.dumps(prof), flush=True)
+    return prof, counts
+
+
+def train_phase(vocab, batches):
+    """The training path: the golden steps, an epoch profiled, the counts
+    of the path, and the step's kernels at its shapes.  Returns what the
+    phase prints, the counts and the kernel rows."""
+    trainer, _ = profile_train.canonical_trainer('cuda', vocab)
+    prof, counts = golden_train_epoch('train', trainer, batches,
+                                      TRAIN_GOLDEN)
     rows = {}
     batch = trainer.device_batch(trainer.host_batch(batches[0]))
     gen = torch.Generator(device='cuda').manual_seed(1)
@@ -507,6 +556,134 @@ def train_phase(vocab):
             kernel_bench.train_cases(batch, gen), floor_ms())):
         rows.setdefault(row['kernel'], {})[row['case']] = row
     return prof, counts, rows
+
+
+def finetune_phase(vocab, batches, train_prof):
+    """The prop-opt fine-tuning path: its golden steps and an epoch
+    profiled, beside the prop step's (``train_prof``).  Returns the
+    profile and the counts."""
+    trainer, _ = profile_train.finetune_trainer('cuda')
+    prof, counts = golden_train_epoch(
+        'finetune', trainer, batches, FINETUNE_GOLDEN,
+        later_update_rtol=profile_train.FINETUNE_LATER_UPDATE_RTOL)
+    print('finetune vs train ' + json.dumps({
+        k: [prof[k], train_prof[k]] for k in (
+            'train_mols_per_s', 'step_wall_ms', 'host_dispatch_ms_per_step',
+            'device_busy_ms_per_step', 'device_idle_share',
+            'kernel_launches_per_step')}), flush=True)
+    return prof, counts
+
+
+def optimize_requests(server, port, rows, golden):
+    """The /optimize requests of the main path, each under the profiler:
+    ``hard`` over HTTP, the others through ``GgpmServer.optimize`` with the
+    golden's settings (``profile_serve.profile_optimize``, whose profiled
+    request is the one held to the golden).  Returns each one's answer,
+    the search's stats, kernel launches (the wrappers' counts),
+    ``nei_sum_kernel``'s device launches and the turbo decode's stats, and
+    each policy's ``profile_optimize`` split."""
+    smiles = [r[0] for r in rows]
+    out, profiles = {}, {}
+    for policy, g in golden['policies'].items():
+        if g['settings'] != OPTIMIZE_SETTINGS[policy]:
+            raise AssertionError(f'the golden\'s {policy} settings are not '
+                                 f'OPTIMIZE_SETTINGS\'s')
+        if policy == 'hard':
+            before = read_counts()
+            answer = []
+            _, events = profiled(lambda: answer.append(request(
+                port, '/optimize', {'smiles': smiles, 'homo': golden['homo'],
+                                    'lumo': golden['lumo'],
+                                    'policy': 'hard'})))
+            out[policy] = dict(
+                answer=answer[0], search=dict(server.search_stats),
+                launches={k: v - before[k] for k, v in read_counts().items()},
+                nei_sum_device_launches=sum(
+                    e.count for e in events if 'nei_sum_kernel' in e.key),
+                turbo=dict(decode.TURBO_STATS))
+        prof = profile_optimize(server, rows, policy, **g['settings'])
+        out.setdefault(policy, {k: prof[k] for k in (
+            'answer', 'search', 'launches', 'nei_sum_device_launches')})
+        out[policy].setdefault('turbo', {k: prof[k] for k in (
+            'rounds', 'fallbacks', 'steps_run', 'eager_steps')})
+        profiles[policy] = {k: v for k, v in prof.items()
+                            if k not in ('answer', 'search')}
+    return out, profiles
+
+
+def searched(model, batch, homo, lumo, policy, settings):
+    """The latents a search of ``batch``'s encoding on the model's device
+    reaches (for the decode logs of a differing string)."""
+    z = encode(model, batch)[0]
+    return LatentOptimizer(model, optimize_type=policy,
+                           **settings).optimize(z, homo, lumo)
+
+
+def optimize_phase(model, model_cpu, vocab, rows, answers, golden, batch,
+                   depth):
+    """Hold each /optimize answer to the JAX reference and its launches to
+    the steps its decode ran; returns what the phase prints."""
+    if golden['inputs'] != [r[0] for r in rows]:
+        raise AssertionError('the optimize golden is not for these requests')
+    homo, lumo = optimize_targets(rows)
+    if not (np.allclose(homo, golden['homo'], rtol=0, atol=1e-7) and
+            np.allclose(lumo, golden['lumo'], rtol=0, atol=1e-7)):
+        raise AssertionError('the optimize golden\'s targets differ')
+    summary = {}
+    for policy, a in answers.items():
+        g = golden['policies'][policy]
+        ans = a['answer']
+        err = max(float(np.abs(np.asarray(ans[k], np.float64) -
+                               np.asarray(g[k])).max())
+                  for k in ('homo', 'lumo'))
+        if len(ans['homo']) != N_MOLS or not err <= OPT_PRED_ATOL:
+            raise AssertionError(f'/optimize {policy}: predictions off the '
+                                 f'JAX reference by {err}')
+        args = (homo, lumo, policy, g['settings'])
+        differ = check_decode(
+            f'optimize {policy}', ans['smiles'], g['smiles'],
+            logs_of(model, vocab, lambda: searched(model, batch, *args)),
+            logs_of(model_cpu, vocab,
+                    lambda: searched(model_cpu, batch, *args)))
+        if len(differ) > MAX_DIFFERING:
+            raise AssertionError(f'/optimize {policy}: {len(differ)} strings '
+                                 f'differ from the JAX reference')
+        st, near = a['search'], set(g['near'])
+        stops = [i for i in range(N_MOLS) if i not in near and (
+            (i in st['by_delta']) != (i in g['by_delta']) or
+            (i in st['by_patience']) != (i in g['by_patience']))]
+        if stops or (not near and st['iterations'] != g['iterations']):
+            raise AssertionError(
+                f'/optimize {policy}: iterations {st["iterations"]} vs '
+                f'{g["iterations"]}, stop reasons differ at {stops}')
+        t = a['turbo']
+        expected = 2 + sum(t['steps_run']) + t['eager_steps']
+        launches = a['launches']
+        if not (launches['nei_sum'] == expected ==
+                a['nei_sum_device_launches'] and
+                launches['gather_rows'] == depth and
+                launches['transpose_sum'] == 0):
+            raise AssertionError(
+                f'/optimize {policy}: launches {launches}, '
+                f'{a["nei_sum_device_launches"]} nei_sum_kernel on the card; '
+                f'expected nei_sum {expected}, gather_rows {depth}')
+        canon = [canon_smiles(s) for s in (r[0] for r in rows)]
+        summary[policy] = dict(
+            prediction_err_vs_jax=err,
+            differ_from_jax=differ,
+            changed_from_input=sum(s != c for s, c in zip(ans['smiles'],
+                                                          canon)),
+            validity=sum(s is not None for s in ans['smiles']) / N_MOLS,
+            iterations=st['iterations'], by_delta=len(st['by_delta']),
+            by_patience=len(st['by_patience']), near=sorted(near),
+            nei_sum_launches=launches['nei_sum'],
+            nei_sum_device_launches=a['nei_sum_device_launches'],
+            expected=expected, launches=launches,
+            **{k: t[k] for k in ('rounds', 'fallbacks', 'steps_run',
+                                 'eager_steps')})
+        print(f'optimize {policy} ' + json.dumps(summary[policy]),
+              flush=True)
+    return summary
 
 
 def main() -> int:
@@ -571,31 +748,52 @@ def main() -> int:
 
         t0 = time.perf_counter()
         answers, dcounts = decode_requests(port, rows)
+        for name, k in KERNELS.items():
+            if (dcounts[name] > 0) != ('decode' in k['paths']):
+                raise AssertionError(f'kernel {name}: {dcounts[name]} '
+                                     f'launches on the decoding path')
+        summary = decode_phase(model, model_cpu, vocab, rows, answers, enc,
+                               batches[0], depth)
+        print('decode ' + json.dumps(summary), flush=True)
+        decode_profiles = {}
+        for batch in batches:
+            z = encode(model, batch)[0]
+            for path in ('turbo', 'exact'):
+                prof_d = profile_decode(model, vocab, z, path,
+                                        max_decode_step=MAX_DECODE_STEP)
+                decode_profiles[(len(z), path)] = prof_d
+                print(f'decode B{len(z)} {path} ' + json.dumps(prof_d),
+                      flush=True)
+        phase('decode', t0)
+
+        t0 = time.perf_counter()
+        with open(OPT_GOLDEN) as f:
+            opt_golden = json.load(f)
+        reset_counts()
+        opt_answers, opt_profiles = optimize_requests(server, port, rows,
+                                                      opt_golden)
+        ocounts = read_counts()
     finally:
         server.stop()
-    for name, k in KERNELS.items():
-        if (dcounts[name] > 0) != ('decode' in k['paths']):
-            raise AssertionError(f'kernel {name}: {dcounts[name]} launches '
-                                 f'on the decoding path')
-    summary = decode_phase(model, model_cpu, vocab, rows, answers, enc,
-                           batches[0], depth)
-    print('decode ' + json.dumps(summary), flush=True)
-    decode_profiles = {}
-    for batch in batches:
-        z = encode(model, batch)[0]
-        for path in ('turbo', 'exact'):
-            prof_d = profile_decode(model, vocab, z, path,
-                                    max_decode_step=MAX_DECODE_STEP)
-            decode_profiles[(len(z), path)] = prof_d
-            print(f'decode B{len(z)} {path} ' + json.dumps(prof_d),
-                  flush=True)
-    phase('decode', t0)
+    opt_summary = optimize_phase(model, model_cpu, vocab, rows, opt_answers,
+                                 opt_golden, batches[0], depth)
+    for policy, prof in opt_profiles.items():
+        print(f'optimize profile {policy} ' + json.dumps(prof), flush=True)
+    phase('optimize', t0)
 
     t0 = time.perf_counter()
-    prof, tcounts, train_rows = train_phase(vocab)
-    counts = {name: counts[name] + dcounts[name] + tcounts[name]
-              for name in counts}
+    _, train_batches = profile_train.hopv_batches(vocab=vocab)
+    if len(train_batches) != profile_train.STEPS_PER_EPOCH:
+        raise AssertionError(f'{len(train_batches)} HOPV batches, need '
+                             f'{profile_train.STEPS_PER_EPOCH}')
+    prof, tcounts, train_rows = train_phase(vocab, train_batches)
     phase('train', t0)
+
+    t0 = time.perf_counter()
+    ft_prof, fcounts = finetune_phase(vocab, train_batches, prof)
+    counts = {name: counts[name] + dcounts[name] + ocounts[name] +
+              tcounts[name] + fcounts[name] for name in counts}
+    phase('finetune', t0)
 
     keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
             'bound_by', 'floor_ms', 'host_ms')
@@ -615,11 +813,15 @@ def main() -> int:
             name=name, route=k['route'], source=k['source'],
             replaces=k['replaces'], launches=counts[name],
             launches_per_step=prof['kernel_launches_per_step'][name],
+            launches_per_finetune_step=ft_prof['kernel_launches_per_step'][
+                name],
             **{key: r[key] for key in keys},
             max_abs_err_all_cases=max(x['max_abs_err']
                                       for x in rows_of.values()),
             call_sites=k['call_sites'], case=k['main_case'],
-            **({'turbo_decode': in_graph} if name == 'nei_sum' else {}),
+            **({'turbo_decode': in_graph, 'per_optimize_request': {
+                p: o['nei_sum_launches'] for p, o in opt_summary.items()}}
+               if name == 'nei_sum' else {}),
             shape=r.get('shape') or dict(h=r['h'], graph=r['graph']),
             cases={case: {key: row[key] for key in keys}
                    for case, row in rows_of.items()

@@ -9,8 +9,9 @@ nor msgpack is needed).  ``load_flax_params`` copies a tree into a port
 model: a ``Dense`` kernel ``[in, out]`` becomes ``Linear.weight``
 ``[out, in]``; an ``Embed`` table maps across as it is; the path
 ``vae/encoder/tree_encoder/rnn/W_f/kernel`` becomes the parameter
-``vae.encoder.tree_encoder.rnn.W_f.weight``.  ``to_flax_tree`` is the
-inverse.
+``vae.encoder.tree_encoder.rnn.W_f.weight``; any other leaf (the
+``loss_weigh/*_log_var`` of a prop-opt model with loss scaling) is the
+parameter of its own name.  ``to_flax_tree`` is the inverse.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ import torch
 from .graph.vocab import PairVocab, load_vocab_file
 from .models.vae import ModelConfig, PropertyVAE, PropOptVAE
 
+# flax leaf -> port attribute, where they differ; any other leaf (a bias,
+# ``LossWeigh``'s log-variances) keeps its name
+_ATTR = {'kernel': 'weight', 'embedding': 'weight'}
 _EXT_NDARRAY = 1          # flax serialization._MsgpackExtType.ndarray
 _CHUNKED = '__msgpack_chunked_array__'
 
@@ -233,8 +237,10 @@ def load_flax_params(model: torch.nn.Module, tree: Mapping) -> None:
         *mod, leaf = path.split('/')
         if leaf == 'kernel':
             arr = arr.T
-        name = '.'.join(mod + ['bias' if leaf == 'bias' else 'weight'])
-        if name in own and leaf in ('kernel', 'bias', 'embedding'):
+        # a flax leaf named 'weight' has no port parameter: the port's
+        # weights are flax kernels (transposed) and embeddings
+        name = '.'.join(mod + [_ATTR.get(leaf, leaf)])
+        if name in own and leaf != 'weight':
             state[name] = torch.from_numpy(np.ascontiguousarray(arr).copy())
         else:
             unknown.append(path)
@@ -248,8 +254,8 @@ def to_flax_tree(model: torch.nn.Module,
                  = lambda p: p) -> Dict[str, Any]:
     """``model``'s parameters as the JAX package lays them out: ``{'params':
     nested dict}`` of numpy arrays, a ``Linear`` as ``kernel`` ``[in, out]``
-    and ``bias``, an ``Embedding`` as ``embedding``; the inverse of
-    ``load_flax_params``.  ``value`` picks what to lay out for each
+    and ``bias``, an ``Embedding`` as ``embedding``, every level's keys
+    sorted as flax sorts them; the inverse of ``load_flax_params``.  ``value`` picks what to lay out for each
     parameter (``lambda p: p.grad`` for its gradient, None reading as
     zeros)."""
     root: Dict[str, Any] = {}
@@ -259,9 +265,12 @@ def to_flax_tree(model: torch.nn.Module,
         elif isinstance(mod, torch.nn.Embedding):
             leaves = {'embedding': (mod.weight, False)}
         else:
-            continue
+            leaves = {k: (p, False)
+                      for k, p in mod.named_parameters(recurse=False)}
+            if not leaves:
+                continue
         node = root
-        for part in name.split('.'):
+        for part in filter(None, name.split('.')):
             node = node.setdefault(part, {})
         for leaf, (p, transpose) in leaves.items():
             if p is None:
@@ -270,7 +279,14 @@ def to_flax_tree(model: torch.nn.Module,
             t = torch.zeros_like(p) if t is None else t.detach()
             node[leaf] = np.ascontiguousarray(
                 (t.t() if transpose else t).cpu().numpy()).copy()
-    return {'params': root}
+    return {'params': _sorted(root)}
+
+
+def _sorted(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """``tree`` with the keys of every level in sorted order, as flax lays
+    out a param tree (so a checkpoint's bytes are the JAX package's)."""
+    return {k: _sorted(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
 
 
 def prop_tree(tree: Mapping) -> Dict[str, Any]:
@@ -299,9 +315,13 @@ def load_model(ckpt_path: str, vocab_path: str, device: str = 'cuda'
                ) -> Tuple[PropOptVAE, PairVocab]:
     """The trained prop-opt model of a checkpoint and its vocab file, in
     eval mode on ``device``.  The configuration is ``ModelConfig``'s
-    defaults with the vocab's sizes."""
+    defaults with the vocab's sizes, and loss scaling where the checkpoint
+    holds ``loss_weigh``."""
     vocab = load_vocab_file(vocab_path)
     hvocab, ivocab = vocab.size()
-    model = PropOptVAE(ModelConfig(hvocab_size=hvocab, ivocab_size=ivocab))
-    load_flax_params(model, read_checkpoint(ckpt_path))
+    tree = read_checkpoint(ckpt_path)
+    model = PropOptVAE(ModelConfig(
+        hvocab_size=hvocab, ivocab_size=ivocab,
+        loss_scaling='loss_weigh' in tree.get('params', tree)))
+    load_flax_params(model, tree)
     return model.eval().to(device), vocab

@@ -1,10 +1,12 @@
 """Shared CLI plumbing: config → vocab → model (counterpart of
-``ggpm_tpu/cli/common.py`` for the ``prop`` model)."""
+``ggpm_tpu/cli/common.py`` for the ``prop`` and ``prop-opt`` models)."""
 
 from __future__ import annotations
 
+import csv
+import math
 import os
-from typing import Tuple
+from typing import Dict, List, Tuple, Union
 
 import torch
 
@@ -12,41 +14,46 @@ from ..bridge import load_flax_params, prop_tree, read_checkpoint, to_flax_tree
 from ..configs import Configs
 from ..data.dataset import read_csv_data
 from ..graph.vocab import PairVocab, load_vocab_file
-from ..models.vae import ModelConfig, PropertyVAE, init_params
+from ..models.vae import ModelConfig, PropertyVAE, PropOptVAE, init_params
 from ..train import checkpoint as ckpt
 
-__all__ = ['maybe_load_pretrained', 'read_csv_data', 'setup_model']
+__all__ = ['load_checkpoint', 'maybe_load_pretrained', 'read_csv_data',
+           'setup_model', 'write_csv']
 
 # model types of the JAX registry (ggpm_tpu/models/vae.py:OPVNet) that the
 # port does not train yet, and the ROADMAP item that brings each
-NOT_PORTED = {'prop-opt': 'A4', 'prop-opt-sched': 'A4', 'hier-prop': 'A5',
+NOT_PORTED = {'prop-opt-sched': 'A4', 'hier-prop': 'A5',
               'hier-prop-opt': 'A5'}
+MODELS = {'prop': PropertyVAE, 'prop-opt': PropOptVAE}
 
 
 def setup_model(configs: Configs, model_type: str, seed: int = 1
-                ) -> Tuple[PropertyVAE, PairVocab, ModelConfig]:
+                ) -> Tuple[Union[PropertyVAE, PropOptVAE], PairVocab,
+                           ModelConfig]:
     """Load the vocab and build the model, initialised as flax initialises
     the JAX package's from a generator seeded with ``seed``; returns
     (model, vocab, config) on the CPU."""
-    if model_type != 'prop':
+    if model_type not in MODELS:
         item = NOT_PORTED.get(model_type)
         if item is None:
             raise ValueError(f'Model {model_type} does not exist')
         raise NotImplementedError(
-            f'model type {model_type!r}: the port trains the prop model '
-            f'only so far; {model_type} is ROADMAP {item}')
+            f'model type {model_type!r}: the port trains the prop and '
+            f'prop-opt models so far; {model_type} is ROADMAP {item}')
     vocab = load_vocab_file(configs.vocab_)
     mcfg = ModelConfig.from_configs(configs, vocab)
-    model = PropertyVAE(mcfg)
+    model = MODELS[model_type](mcfg)
     init_params(model, torch.Generator().manual_seed(seed))
     return model, vocab, mcfg
 
 
-def maybe_load_pretrained(model: PropertyVAE, configs: Configs) -> bool:
+def maybe_load_pretrained(model, configs: Configs) -> bool:
     """The reference's pretrain → fine-tune weight transfer (vae_train.py:
     40-53): load the ``saved_model`` checkpoint (a ``prop`` tree, or the
     ``vae/`` subtree of a prop-opt one) and copy the matching encoder (or
-    all) weights into ``model``.  Returns whether a checkpoint was found."""
+    all) weights into ``model``, a ``prop`` model or the ``vae/`` of a
+    ``prop-opt`` one (whose heads keep their weights).  Returns whether a
+    checkpoint was found."""
     saved = getattr(configs, 'saved_model', None)
     if not saved or not os.path.exists(saved):
         return False
@@ -56,7 +63,36 @@ def maybe_load_pretrained(model: PropertyVAE, configs: Configs) -> bool:
         tree, n = ckpt.copy_encoder(target, source)
         print(f'Successfully copied encoder weights ({n} tensors).')
     else:
-        tree, n = ckpt.copy_matching(target, source)
+        tree, n = ckpt.copy_matching(target, source,
+                                     prefix_map={'params/vae/': 'params/'})
         print(f'Successfully copied encoder-decoder weights ({n} tensors).')
     load_flax_params(model, tree)
     return True
+
+
+def load_checkpoint(model, configs: Configs) -> str:
+    """Load the ``output_model`` (else ``saved_model``) checkpoint of the
+    config into ``model``, every parameter of the model from the file (the
+    JAX CLIs' ``ckpt.load_params`` into the model's template); returns its
+    path."""
+    path = configs.get('output_model') or configs.get('saved_model')
+    load_flax_params(model, ckpt.load_params(to_flax_tree(model), path))
+    return path
+
+
+def _cell(v) -> str:
+    if v is None or (isinstance(v, float) and math.isnan(v)):
+        return ''
+    return repr(v) if isinstance(v, float) else str(v)
+
+
+def write_csv(path: str, rows: List[Dict]) -> None:
+    """Write ``rows`` (dicts with the same keys, in column order) as
+    ``pandas.DataFrame(rows).to_csv(path, index=False)`` writes them: a
+    header, floats in their shortest round-trip form, None and NaN as
+    empty cells, minimal quoting, ``\\n`` line ends."""
+    with open(path, 'w', newline='') as f:
+        w = csv.writer(f, lineterminator='\n')
+        if rows:
+            w.writerow(list(rows[0]))
+        w.writerows([_cell(v) for v in r.values()] for r in rows)

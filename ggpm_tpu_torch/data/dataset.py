@@ -1,13 +1,13 @@
-"""Reading molecules and pruning them to a vocabulary (the part of
-``ggpm_tpu/data/dataset.py`` and ``ggpm_tpu/cli/common.py`` that serving
-needs)."""
+"""Reading molecules, pruning them to a vocabulary and tensorizing them per
+batch (the part of ``ggpm_tpu/data/dataset.py`` and
+``ggpm_tpu/cli/common.py`` that serving and the CLIs need)."""
 
 from __future__ import annotations
 
 import csv
 from typing import List, Sequence
 
-from ..graph.mol_graph import MolGraph
+from ..graph.mol_graph import MolGraph, tensorize
 
 
 def read_csv_data(path: str) -> List[list]:
@@ -51,3 +51,21 @@ def prune_to_vocab(data: Sequence, vocab, verbose: bool = True) -> List:
     if verbose:
         print(f'After pruning {len(data)} -> {len(safe_data)}')
     return safe_data
+
+
+class MoleculeDataset:
+    """Prunes out-of-vocab molecules, then tensorizes per batch on access
+    (JAX ``MoleculeDataset``; the last batch may be short)."""
+
+    def __init__(self, data, vocab, avocab, batch_size: int):
+        safe_data = prune_to_vocab(data, vocab)
+        self.batches = [safe_data[i:i + batch_size]
+                        for i in range(0, len(safe_data), batch_size)]
+        self.vocab = vocab
+        self.avocab = avocab
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __getitem__(self, idx):
+        return tensorize(self.batches[idx], self.vocab, self.avocab)

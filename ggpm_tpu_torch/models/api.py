@@ -1,6 +1,5 @@
 """Model-level convenience API (counterpart of ``ggpm_tpu/models/api.py``:
-``encode``, ``reconstruct`` and ``sample``; ``optimize_recs`` arrives with
-latent search)."""
+``encode``, ``reconstruct``, ``sample`` and ``optimize_recs``)."""
 
 from __future__ import annotations
 
@@ -63,3 +62,22 @@ def sample(model, vocab: PairVocab, batch_size: int,
     """Sample from the prior (reference ``sample``)."""
     return sample_prior(model, vocab, avocab, batch_size,
                         rng=np.random.default_rng(seed), **kwargs)
+
+
+def optimize_recs(model, mb, vocab: PairVocab, avocab=common_atom_vocab,
+                  optimize_type: str = 'hard', **opt_kwargs):
+    """Latent property optimisation, then decode (reference
+    ``optimize_recs``): encode ``mb`` without noise, search its latents
+    against its own HOMO/LUMO labels (``LatentOptimizer``), predict the
+    properties at the searched latents and decode them greedily through
+    ``decode_best``.  Returns ((homo, lumo) as numpy, (results,
+    smiles))."""
+    from ..latent.control import LatentOptimizer
+    z, _ = encode(model, to_model_batch(mb, vocab.mask, pad=False))
+    opt = LatentOptimizer(model, optimize_type=optimize_type, **opt_kwargs)
+    z_opt = opt.optimize(z, mb.homos, mb.lumos)
+    with torch.no_grad():
+        props = tuple(p.cpu().numpy() for p in model.predict_properties(z_opt))
+    out = decode_best(model, vocab, avocab, z_opt, greedy=True,
+                      max_decode_step=150)
+    return props, out

@@ -1,7 +1,7 @@
 """The motif VAE with property heads (counterpart of
-``ggpm_tpu/models/vae.py``: ``ModelConfig``, ``PropertyVAE`` with its
-training forward, ``PropOptVAE`` as far as encoding, property prediction
-and decoding need it), and ``init_params``, flax's default initialisers.
+``ggpm_tpu/models/vae.py``: ``ModelConfig``, ``PropertyVAE`` and
+``PropOptVAE`` with their training forwards), and ``init_params``, flax's
+default initialisers.
 
 Reference: ggpm/property_vae.py (PropertyVAE, PropOptVAE).
 """
@@ -17,7 +17,7 @@ from torch import nn
 
 from .decoder import MotifDecoder
 from .encoder import MotifEncoder
-from .heads import PropertyOptimizer
+from .heads import LossWeigh, PropertyOptimizer
 
 
 @dataclass
@@ -36,6 +36,7 @@ class ModelConfig:
     diterT: int = 1
     dropout: float = 0.0
     rnn_type: str = 'LSTM'
+    loss_scaling: bool = False
 
     def __post_init__(self):
         if self.rnn_type != 'LSTM':
@@ -57,7 +58,7 @@ class ModelConfig:
             k: getattr(configs, k) for k in (
                 'embed_size', 'hidden_size', 'latent_size',
                 'linear_hidden_size', 'depthT', 'diterT', 'dropout',
-                'rnn_type') if hasattr(configs, k)})
+                'rnn_type', 'loss_scaling') if hasattr(configs, k)})
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -157,7 +158,8 @@ class PropertyVAE(nn.Module):
 
 class PropOptVAE(nn.Module):
     """Motif VAE + HOMO/LUMO property heads on the split latent (reference
-    property_vae.py:257-394; registry name ``prop-opt``)."""
+    property_vae.py:257-394; registry name ``prop-opt``), with the learned
+    loss weighing when ``cfg.loss_scaling``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -166,7 +168,9 @@ class PropOptVAE(nn.Module):
         self.vae = PropertyVAE(cfg)
         self.property_optim = PropertyOptimizer(
             self.half_latent, cfg.latent_size - self.half_latent,
-            cfg.linear_hidden_size)
+            cfg.linear_hidden_size, cfg.dropout)
+        if cfg.loss_scaling:
+            self.loss_weigh = LossWeigh()
 
     def _decoder(self) -> MotifDecoder:
         return self.vae.decoder
@@ -178,3 +182,51 @@ class PropOptVAE(nn.Module):
     def predict_properties(self, z: torch.Tensor):
         return self.property_optim.predict(z[:, :self.half_latent],
                                            z[:, self.half_latent:])
+
+    def property_loss(self, z: torch.Tensor, homos: torch.Tensor,
+                      lumos: torch.Tensor):
+        """(HOMO MSE, LUMO MSE, HOMO out, LUMO out) of the heads at ``z``
+        against the labels, NaN labels left out."""
+        return self.property_optim(z[:, :self.half_latent],
+                                   z[:, self.half_latent:], (homos, lumos))
+
+    def forward(self, batch: Dict[str, Any], beta: float,
+                eps: Optional[torch.Tensor] = None, perturb_z: bool = True,
+                generator: Optional[torch.Generator] = None,
+                clip_eps: Optional[torch.Tensor] = None):
+        """The fine-tuning loss of a device batch that carries ``homos``
+        and ``lumos``: ``(total, metrics, aux)`` with ``total = (decoder
+        loss + beta · KL) + HOMO MSE + LUMO MSE``, each term weighed by
+        ``LossWeigh`` first when ``cfg.loss_scaling`` (reference
+        property_vae.py:330-357).  The latent is sampled as
+        ``PropertyVAE.forward`` samples it.  A total at or below zero is
+        replaced by ``0.5 + 0.5 · clip_eps`` (the negative-loss circuit
+        breaker), ``clip_eps`` a standard normal scalar drawn from
+        ``generator`` when not given, and 0 when neither is (the JAX
+        model's ``rng=None``); ``aux['clipped']`` is that condition as a
+        device bool, read by the ``Trainer`` without a sync per step."""
+        tree, plan = batch['tree'], batch['plan']
+        root, _ = self.vae.encoder(tree)
+        if perturb_z and eps is None:
+            eps = torch.randn((root.shape[0], self.cfg.latent_size),
+                              generator=generator, device=root.device)
+        z, kl = self.vae.rsample(root, eps if perturb_z else None)
+        homo_loss, lumo_loss, _, _ = self.property_loss(
+            z, batch['homos'], batch['lumos'])
+        recon_loss, metrics = self.vae.decoder(tree, plan, z,
+                                               batch['vocab_mask'])
+        recon_loss = recon_loss + beta * kl
+        if self.cfg.loss_scaling:
+            recon_loss, homo_loss, lumo_loss = self.loss_weigh(
+                recon_loss, homo_loss, lumo_loss)
+        total = recon_loss + homo_loss + lumo_loss
+        if clip_eps is None:
+            clip_eps = (torch.zeros((), device=total.device)
+                        if generator is None else
+                        torch.randn((), generator=generator,
+                                    device=total.device))
+        clipped = total <= 0
+        total = torch.where(clipped, 0.5 + 0.5 * clip_eps, total)
+        metrics = dict(metrics, Loss=total, KL=kl, Recs_Loss=recon_loss,
+                       HOMO_MSE=homo_loss, LUMO_MSE=lumo_loss)
+        return total, metrics, {'clipped': clipped.detach()}

@@ -1,4 +1,5 @@
-"""Where the time of one ``/encode`` and of a decode goes on a GPU.
+"""Where the time of one ``/encode``, of a decode and of an ``/optimize``
+goes on a GPU.
 
     python -m ggpm_tpu_torch.profile_serve [--propose-sweep] [--out PATH]
 
@@ -10,8 +11,10 @@ molecules' latents through the turbo path (which ``/reconstruct`` takes)
 and through the exact path, with wall time, molecules/s, the host's split
 between chemistry and the rest, and the device's busy and idle share.
 ``--propose-sweep`` adds ``propose_sweep`` at both sizes: how the turbo
-path's lookahead and ladder were chosen, and what ``chunk`` gives.  Prints one
-JSON object (and writes it to ``--out`` if given).  Needs a CUDA device;
+path's lookahead and ladder were chosen, and what ``chunk`` gives.
+``profile_optimize`` (one ``/optimize`` of the 64 molecules under a
+policy; chip_smoke.py runs it at ``OPTIMIZE_SETTINGS``) has no flag here.
+Prints one JSON object (and writes it to ``--out`` if given).  Needs a CUDA device;
 it has no CPU mode.
 """
 
@@ -29,19 +32,49 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from . import serve
 from .bridge import load_model
 from .data.batching import to_model_batch
 from .data.dataset import prune_to_vocab, read_csv_data
 from .graph.mol_graph import tensorize
 from .graph.vocab import common_atom_vocab
+from .latent.control import LatentOptimizer
 from .models import decode, inc_graph
 from .models.api import encode
-from .ops import nei_sum
+from .ops import gather_rows, nei_sum, transpose_sum
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_MOLS = 64      # the request chip_smoke.py sends
 N_DECODE = 120   # the decode measurement (ROADMAP A1)
 REPS = 10
+_WRAPPERS = (nei_sum, transpose_sum, gather_rows)
+# /optimize's targets in chip_smoke.py: each molecule's own HOMO + 0.01
+# and LUMO - 0.01 (Hartree), and each policy's settings, which the golden
+# goldens/optimize_hopv64.json records.  Fixed on the CPU before any card
+# run.  ``hard`` goes over HTTP, whose body carries the policy only: the
+# JAX defaults (lr 1, 50 steps of the batch mean), which move the latents
+# by at most 4e-3 and change no decode.  ``soft`` and ``patience`` go
+# through GgpmServer.optimize.  The search's step always lowers the
+# prediction (the sign rule), so a row's loss mostly grows and its
+# patience runs out; with the default patience_threshold 0.1 a row whose
+# loss falls by more than a tenth keeps its patience, and at every
+# latent_lr that changes decodes (100 and above) this makes the search
+# chaotic: latents perturbed by 1e-6 come out 100 and more apart.
+# patience_threshold 1.0 spends patience at every step (a loss falls by at
+# most all of itself), so each row takes exactly ``patience`` (5) steps
+# unless soft's delta stops it first: a continuous map of the latents,
+# 1e-6 in, at most 1.2e-5 out in the predictions.  latent_lr 500 then
+# changes 35 (soft) and 38 (patience) of the 64 decodes; property_delta
+# 2e-4, near the median first loss (5.4e-4 over the 64), stops 22 rows by
+# delta under soft.  property_optim_step only sets the loop's cap here.
+OPTIMIZE_OFFSETS = {'homo': 0.01, 'lumo': -0.01}
+OPTIMIZE_SETTINGS = {
+    'hard': {},
+    'soft': dict(latent_lr=500.0, property_delta=2e-4,
+                 property_optim_step=50, patience_threshold=1.0),
+    'patience': dict(latent_lr=500.0, property_delta=2e-4,
+                     property_optim_step=50, patience_threshold=1.0),
+}
 
 
 def _device_us(event) -> float:
@@ -54,10 +87,10 @@ def _device_us(event) -> float:
 
 def profiled(fn, reps: int = 1):
     """Device busy µs per run of ``fn`` and its device events, from
-    torch.profiler; device-side events only, since a CPU op's self device
-    time repeats its kernels' own."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    torch.profiler tracing the device alone: a CPU op's self device time
+    repeats its kernels' own, and the host's events would only add to the
+    processing (most of it, at a training epoch's 110,000 launches)."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
     events = [e for e in prof.key_averages()
@@ -72,16 +105,20 @@ def top_kernels(events, reps: int = 1, n: int = 12):
 
 
 @contextlib.contextmanager
-def _timed(owner, name: str, acc: dict):
+def _timed(owner, name: str, acc: dict, sync: bool = False):
     """Add the seconds spent in ``owner.name`` (a module's function or a
     class's method, which the callers look up by name) to ``acc[name]``
-    while the block runs."""
+    while the block runs; with ``sync``, each call ends in a synchronize,
+    so that its device work counts in it."""
     fn = getattr(owner, name)
 
     def wrapped(*args, **kwargs):
         t0 = time.perf_counter()
         try:
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            return out
         finally:
             acc[name] += time.perf_counter() - t0
     acc.setdefault(name, 0.0)
@@ -167,6 +204,91 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
         out.update(steps=steps, ms_per_step=1e3 * wall / steps,
                    chemistry_ms_per_step=1e3 * chem / steps)
     return out
+
+
+def optimize_targets(rows):
+    """The /optimize targets of ``rows`` (SMILES, HOMO, LUMO)."""
+    return ([r[1] + OPTIMIZE_OFFSETS['homo'] for r in rows],
+            [r[2] + OPTIMIZE_OFFSETS['lumo'] for r in rows])
+
+
+def profile_optimize(server, rows, policy: str, **opt_kwargs) -> dict:
+    """One ``/optimize`` of ``rows`` through ``server.optimize`` (a
+    ``GgpmServer`` on the card) under ``policy``, after one untimed
+    request.  From a timed request, its steps each ending in a
+    synchronize: wall seconds; host tensorize ms; encode ms; search ms
+    (``LatentOptimizer.optimize``), the iterations it ran and the rows it
+    stopped by delta and by patience; decode seconds with the host split
+    of ``profile_decode``, and the rest.  From a profiled request: the
+    device's busy ms, idle share and launches, the kernel wrappers' launch
+    counts beside ``nei_sum_kernel``'s device events, the turbo path's
+    rounds and steps, the search's stats and the answer; and from the search alone,
+    profiled, its device busy ms, idle share and launches.  Each idle share
+    is one minus the busy time over the wall time of the same profiled
+    run."""
+    smiles = [r[0] for r in rows]
+    homo, lumo = optimize_targets(rows)
+    answers, walls = [], []
+
+    def run():
+        t0 = time.perf_counter()
+        answers.append(server.optimize(smiles, homo, lumo, policy,
+                                       **opt_kwargs))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    run()
+    acc: dict = {}
+    with _timed(serve, 'tensorize', acc), \
+            _timed(serve, '_encode', acc, sync=True), \
+            _timed(LatentOptimizer, 'optimize', acc, sync=True), \
+            _timed(serve, 'decode_best', acc, sync=True), \
+            _timed(decode, '_try_assemble', acc), \
+            _timed(inc_graph.IncGraph, 'get_smiles', acc):
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    before = {k.__name__: k.launches for k in _WRAPPERS}
+    busy_us, events = profiled(run)
+    profiled_wall = walls[-1]
+    launches = {k.__name__: k.launches - before[k.__name__]
+                for k in _WRAPPERS}
+    turbo, st = dict(decode.TURBO_STATS), dict(server.search_stats)
+    z = server._encode_smiles(smiles)
+    opt = LatentOptimizer(server.model, optimize_type=policy, **opt_kwargs)
+
+    def search():
+        t0 = time.perf_counter()
+        opt.optimize(z, homo, lumo)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    search_busy_us, search_events = profiled(search)
+    nei = [e for e in events if 'nei_sum_kernel' in e.key]
+    search_ms = 1e3 * acc['optimize']
+    return dict(
+        policy=policy, settings=opt_kwargs, n_mols=len(rows), wall_s=wall,
+        tensorize_ms=1e3 * acc['tensorize'], encode_ms=1e3 * acc['_encode'],
+        search_ms=search_ms, iterations=st['iterations'],
+        stopped_by_delta=len(st['by_delta']),
+        stopped_by_patience=len(st['by_patience']),
+        search_ms_per_iteration=search_ms / max(st['iterations'], 1),
+        decode_s=acc['decode_best'], chemistry_s=acc['_try_assemble'],
+        smiles_s=acc['get_smiles'],
+        other_s=wall - sum(acc[k] for k in ('tensorize', '_encode',
+                                            'optimize', 'decode_best')),
+        **{k: turbo[k] for k in ('rounds', 'fallbacks', 'steps_run',
+                                 'eager_steps')},
+        device_busy_ms=busy_us / 1e3,
+        device_idle_share=1.0 - busy_us / 1e6 / profiled_wall,
+        device_launches=sum(e.count for e in events),
+        launches=launches,
+        nei_sum_device_launches=sum(e.count for e in nei),
+        search_device_busy_ms=search_busy_us / 1e3,
+        search_device_idle_share=1.0 - search_busy_us / 1e6 / walls[-1],
+        search_device_launches=sum(e.count for e in search_events),
+        top_device_kernels=top_kernels(events, n=8),
+        search=st, answer=answers[-1])
 
 
 def propose_sweep(model, vocab, z, T: int = 150, reps: int = 5) -> dict:

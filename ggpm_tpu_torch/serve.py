@@ -10,10 +10,15 @@
     POST /reconstruct  {"smiles": [...]}      → {"smiles": [...]}
     POST /sample       {"n": 8, "seed": 0}    → {"smiles": [...]}
     POST /properties   {"smiles": [...]}      → {"homo": [...], "lumo": [...]}
+    POST /optimize     {"smiles": [...], "homo": [...], "lumo": [...],
+                        "policy": "hard"}     → {"smiles", "homo", "lumo"}
     GET  /health                              → status
 
-``/optimize`` needs latent search, which the port does not have yet: it
-answers 501.  A failed request answers 500 with ``{"error": str(e)}``.
+``/optimize`` searches the latents of the molecules against the target
+HOMO/LUMO values (``latent.control.LatentOptimizer`` with the policy's
+defaults; ``GgpmServer.optimize`` takes its other settings as keywords),
+predicts the properties at the searched latents and decodes them through
+the turbo path.  A failed request answers 500 with ``{"error": str(e)}``.
 """
 
 from __future__ import annotations
@@ -29,11 +34,9 @@ import torch
 from .data.batching import to_model_batch
 from .graph.mol_graph import tensorize
 from .graph.vocab import PairVocab, common_atom_vocab
+from .latent.control import LatentOptimizer
 from .models.api import encode as _encode
 from .models.decode import decode_best, sample_prior
-
-_NOT_YET = ('/optimize needs latent search, which the PyTorch port does not '
-            'have yet (ROADMAP.md, queue A)')
 
 
 class GgpmServer:
@@ -46,6 +49,8 @@ class GgpmServer:
         self.lock = threading.Lock()   # one request on the model at a time
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        # the last /optimize's LatentOptimizer.stats(), for profiling
+        self.search_stats: Optional[dict] = None
 
     # -- operations --------------------------------------------------------
     def _encode_smiles(self, smiles_list) -> torch.Tensor:
@@ -78,6 +83,21 @@ class GgpmServer:
         with torch.no_grad():
             h, l = self.model.predict_properties(z)
         return {'homo': h.tolist(), 'lumo': l.tolist()}
+
+    def optimize(self, smiles_list, homo, lumo, policy: str = 'hard',
+                 **opt_kwargs):
+        z = self._encode_smiles(smiles_list)
+        opt = LatentOptimizer(self.model, optimize_type=policy, **opt_kwargs)
+        z_opt = opt.optimize(z, np.asarray(homo, dtype=np.float32),
+                             np.asarray(lumo, dtype=np.float32))
+        self.search_stats = opt.stats()
+        with torch.no_grad():
+            h, l = self.model.predict_properties(z_opt)
+        _, out = decode_best(self.model, self.vocab, self.avocab, z_opt,
+                             greedy=True,
+                             max_decode_step=self.max_decode_step,
+                             log_steps=False)
+        return {'smiles': out, 'homo': h.tolist(), 'lumo': l.tolist()}
 
     # -- http --------------------------------------------------------------
     def _handler(self):
@@ -118,8 +138,11 @@ class GgpmServer:
                         elif self.path == '/properties':
                             out = server.properties(req['smiles'])
                         elif self.path == '/optimize':
-                            self._reply(501, {'error': _NOT_YET})
-                            return
+                            # the body passes the policy only, as the JAX
+                            # server's does
+                            out = server.optimize(
+                                req['smiles'], req['homo'], req['lumo'],
+                                req.get('policy', 'hard'))
                         else:
                             self._reply(404, {'error': 'not found'})
                             return

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import time
 from collections.abc import Mapping
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,7 +21,7 @@ import torch
 from ..bridge import to_flax_tree
 from ..data.batching import compact_plan_dict, to_model_batch, train_tables
 from . import checkpoint as ckpt
-from .optim import Adam
+from .optim import Adam, MultiAdam
 
 
 def to_device(batch: Mapping, device, vocab_mask: Optional[torch.Tensor]
@@ -90,16 +90,29 @@ class MetricAccumulator:
         self.pending = []
 
 
+def count_clipped(flags: list) -> int:
+    """How many of a list of circuit-breaker flags are set: host bools
+    (``PropertyVAE``) and device bools (``PropOptVAE``), the latter read
+    in one sync."""
+    dev = [f for f in flags if isinstance(f, torch.Tensor)]
+    n = sum(bool(f) for f in flags if not isinstance(f, torch.Tensor))
+    return n + (int(torch.stack(dev).sum()) if dev else 0)
+
+
 class Trainer:
     """Orchestrates epochs over an iterable of ``MolGraphBatch`` objects
-    (or ``to_model_batch`` dicts) for the ``prop`` model.
+    (or ``to_model_batch`` dicts) for the ``prop`` and ``prop-opt``
+    models; a ``prop-opt`` batch carries its HOMO/LUMO labels to the
+    device, NaN where a molecule has none.
 
-    The optimizer is attached to the model's parameters here (they move
-    into its flat buffer, see ``optim.Adam.attach``), after the model is
-    moved to ``device``; weights loaded later with
-    ``bridge.load_flax_params`` land in the same buffer."""
+    The optimizer (``optim.Adam`` or ``optim.MultiAdam``) is attached to
+    the model's named parameters here (they move into its flat buffers,
+    see ``optim.Adam.attach``), after the model is moved to ``device``;
+    weights loaded later with ``bridge.load_flax_params`` land in the same
+    buffers."""
 
-    def __init__(self, model, optimizer: Adam, vocab_mask: np.ndarray,
+    def __init__(self, model, optimizer: Union[Adam, MultiAdam],
+                 vocab_mask: np.ndarray,
                  beta: float = 0.1, print_iter: int = 50,
                  save_dir: Optional[str] = None, save_iter: int = -1,
                  clip_break_count: int = 5, seed: int = 1,
@@ -108,7 +121,7 @@ class Trainer:
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.optimizer = optimizer
-        self.opt_state = optimizer.attach(self.model.parameters())
+        self.opt_state = optimizer.attach(dict(self.model.named_parameters()))
         self.vocab_mask = np.asarray(vocab_mask)
         self._mask_dev = torch.as_tensor(self.vocab_mask, device=self.device)
         self.beta = beta
@@ -171,7 +184,9 @@ class Trainer:
         order they were opened.  This is the order in which the JAX
         ``Trainer`` takes its steps (loop.py:474-484), so both follow the
         same parameter trajectory.  Returns True when the negative-loss
-        circuit breaker stops the run."""
+        circuit breaker stops the run: its flags stay on the device, and
+        are counted at each print boundary and at the epoch's end, where
+        ``clip_break_count`` of them in the run stop it."""
         acc = MetricAccumulator()
         t0 = time.time()
         mols0 = self.mols_seen
@@ -192,7 +207,7 @@ class Trainer:
             if self.total_step >= next_print:
                 next_print = (self.total_step // self.print_iter + 1) \
                     * self.print_iter
-                self.n_clipped += int(sum(bool(x) for x in clipped_flags))
+                self.n_clipped += count_clipped(clipped_flags)
                 clipped_flags.clear()
                 if self.n_clipped >= self.clip_break_count:
                     log(f'[{self.total_step}] negative-loss clip count '
@@ -222,7 +237,7 @@ class Trainer:
             run([db for _, db in group])
             if boundary():
                 return True
-        self.n_clipped += int(sum(bool(x) for x in clipped_flags))
+        self.n_clipped += count_clipped(clipped_flags)
         return self.n_clipped >= self.clip_break_count
 
     @torch.no_grad()

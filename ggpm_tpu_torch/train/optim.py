@@ -1,7 +1,7 @@
 """Adam with exponential learning-rate decay and global-norm clipping, as
-the JAX package's optax chain computes it (counterpart of
-``ggpm_tpu/train/optim.py:make_optimizer``; the per-subnetwork optimizer,
-``make_multi_optimizer``, is ROADMAP A4).
+the JAX package's optax chain computes it, and the per-subnetwork optimizer
+(counterpart of ``ggpm_tpu/train/optim.py``: ``make_optimizer``,
+``make_multi_optimizer``, ``default_group_fn``).
 
 The chain is ``clip_by_global_norm(clip_norm)``, ``scale_by_adam()`` (b1
 0.9, b2 0.999, eps 1e-8, eps_root 0) and ``scale_by_learning_rate(lr ·
@@ -13,13 +13,16 @@ divides by ``‖g‖ + 1e-6`` instead).
 ``Adam.attach`` moves a model's parameters into one flat buffer, each
 parameter a view of it, so that an update is a handful of elementwise
 kernels over one vector (optax's ``flatten`` does the same for the JAX
-package).
+package).  ``MultiAdam`` is ``optax.multi_transform`` over such chains:
+each group of parameters has its own flat buffer, clips by the global norm
+of its own gradients, and keeps its own moments, learning rate and count.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import Callable, Dict, List, Sequence, Union
 
 import torch
 
@@ -43,11 +46,14 @@ class Adam:
         rate = torch.tensor(self.anneal_rate, dtype=torch.float32) ** epoch
         return float(self.lr * rate)
 
-    def attach(self, params: Sequence[torch.nn.Parameter]) -> 'AdamState':
-        """Put ``params`` (distinct, one device, float32) into one flat
-        buffer and return the zero state over it.  The parameters stay
-        where the model holds them, each now a view of the buffer."""
-        params = list(params)
+    def attach(self, params: Union[Sequence[torch.nn.Parameter],
+                                   Mapping]) -> 'AdamState':
+        """Put ``params`` (distinct, one device, float32; or a mapping
+        from names to them, as ``dict(model.named_parameters())``) into
+        one flat buffer and return the zero state over it.  The parameters
+        stay where the model holds them, each now a view of the buffer."""
+        params = list(params.values() if isinstance(params, Mapping)
+                      else params)
         flat = torch.cat([p.detach().reshape(-1) for p in params])
         offset = 0
         for p in params:
@@ -109,3 +115,75 @@ def make_optimizer(lr: float = 1e-3, clip_norm: float = 20.0,
     ``make_optimizer``)."""
     return Adam(lr=lr, clip_norm=clip_norm, anneal_rate=anneal_rate,
                 steps_per_epoch=steps_per_epoch)
+
+
+def default_group_fn(path: str) -> str:
+    """Route a parameter to the encoder, decoder, homo or lumo group by its
+    path (JAX ``default_group_fn``).  The port's parameter names mirror the
+    flax paths module by module (``vae.encoder.…``, ``property_optim.
+    homo_linear.…``), so the tied embeddings, ``vae.E_c`` and ``vae.E_i``
+    (flax ``vae/E_c/embedding``), fall in the decoder group in both."""
+    if 'homo_linear' in path:
+        return 'homo'
+    if 'lumo_linear' in path:
+        return 'lumo'
+    if 'encoder' in path:
+        return 'encoder'
+    return 'decoder'
+
+
+@dataclass
+class MultiAdam:
+    """One ``Adam`` per group (``make_multi_optimizer``); ``group_fn`` maps
+    a parameter's name to its group."""
+    group_fn: Callable[[str], str]
+    groups: Dict[str, Adam]
+
+    def attach(self, named: Mapping) -> 'MultiAdamState':
+        """Give each group's parameters of ``named`` (name -> parameter,
+        as ``dict(model.named_parameters())``) their own flat buffer and
+        zero state.  A group no parameter falls in is left out."""
+        members: Dict[str, list] = {g: [] for g in self.groups}
+        for name, p in named.items():
+            g = self.group_fn(name)
+            if g not in members:
+                raise KeyError(f'parameter {name}: group {g!r} has no '
+                               f'learning rate (have {sorted(members)})')
+            members[g].append(p)
+        return MultiAdamState({g: self.groups[g].attach(ps)
+                               for g, ps in members.items() if ps})
+
+
+class MultiAdamState:
+    """The per-group states of one ``MultiAdam`` run."""
+
+    def __init__(self, groups: Dict[str, AdamState]):
+        self.groups = groups
+        self.params = [p for st in groups.values() for p in st.params]
+        self.group_norms: Dict[str, torch.Tensor] = {}
+
+    @property
+    def count(self) -> int:
+        return next(iter(self.groups.values())).count
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """One update of every group from the parameters' ``.grad``, each
+        clipped by its own gradients' global norm; returns the norm over
+        all groups (before clipping) and keeps each group's in
+        ``group_norms``, as device scalars."""
+        self.group_norms = {g: st.step() for g, st in self.groups.items()}
+        return torch.stack(list(self.group_norms.values())).square().sum() \
+            .sqrt()
+
+
+def make_multi_optimizer(group_fn: Callable[[str], str],
+                         lrs: Dict[str, float], clip_norm: float = 20.0,
+                         anneal_rate: float = 0.9,
+                         steps_per_epoch: int = 1000) -> MultiAdam:
+    """Per-subnetwork optimizers, each group with its own learning rate
+    (JAX ``make_multi_optimizer``; reference vae_fine_tune_indv_opt.py:
+    61-70)."""
+    return MultiAdam(group_fn, {
+        name: make_optimizer(lr, clip_norm, anneal_rate, steps_per_epoch)
+        for name, lr in lrs.items()})

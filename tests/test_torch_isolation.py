@@ -73,7 +73,7 @@ def test_source_scan_pattern():
 def test_port_modules_are_all_scanned():
     names = {m.name for m in pkgutil.walk_packages([PORT])}
     assert {'bridge', 'serve', 'ops', 'models', 'graph', 'chem', 'train',
-            'cli', 'configs', 'profile_train', 'profile_serve',
+            'cli', 'configs', 'latent', 'profile_train', 'profile_serve',
             'kernel_bench'} <= names
 
 

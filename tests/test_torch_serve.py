@@ -3,7 +3,8 @@ property heads, called directly (the JAX GgpmServer's own tests depend on a
 fixture whose data are not in the repo, so it is no oracle), its HTTP
 surface against the JAX server's, and the JAX reference numbers that
 chip_smoke.py holds the card's answers to.  The decoding endpoints are held
-to the JAX package in tests/test_torch_decode.py."""
+to the JAX package in tests/test_torch_decode.py, the search behind
+``/optimize`` in tests/test_torch_latent.py."""
 
 import importlib.util
 import json
@@ -24,7 +25,9 @@ from ggpm_tpu.data.dataset import prune_to_vocab as jax_prune
 from ggpm_tpu.data.vocab_extract import load_vocab_file as jax_load_vocab
 from ggpm_tpu.graph import mol_graph as jax_mg
 from ggpm_tpu.graph.vocab import common_atom_vocab as jax_avocab
+from ggpm_tpu.latent.control import LatentOptimizer as JaxLatentOptimizer
 from ggpm_tpu.models.api import encode as jax_encode
+from ggpm_tpu.models.decode import decode_best as jax_decode_best
 from ggpm_tpu.models.vae import ModelConfig as JaxModelConfig
 from ggpm_tpu.models.vae import PropOptVAE as JaxPropOptVAE
 from ggpm_tpu_torch.bridge import load_model, read_checkpoint
@@ -117,10 +120,46 @@ def test_encode_and_properties_match_jax(server, jax_side):
     np.testing.assert_allclose(props['lumo'], lumo, rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize('path', ['/optimize'])
-def test_decode_endpoints_answer_501(server, path):
-    code, out = _call(server['port'], path, {'smiles': ['CCO'], 'n': 2})
-    assert code == 501 and 'ROADMAP' in out['error']
+def test_optimize_endpoint_matches_jax(server, jax_side):
+    """``/optimize`` with the policy left to its default (hard, the JAX
+    server's): the JAX encoder's latents searched by the JAX
+    ``LatentOptimizer``, the predictions there and ``decode_best``'s
+    strings (the JAX server's steps, called directly)."""
+    rows = read_csv_data(DATA)[:3]
+    smiles = [r[0] for r in rows]
+    homo = [r[1] + 0.01 for r in rows]
+    lumo = [r[2] - 0.01 for r in rows]
+    z, _, _ = _jax_predict(jax_side, [[s, None, None] for s in smiles])
+    opt = JaxLatentOptimizer(jax_side['model'], jax_side['params'],
+                             optimize_type='hard')
+    z_opt = opt.optimize(jnp.asarray(z), np.asarray(homo, np.float32),
+                         np.asarray(lumo, np.float32))
+    h, l = jax_side['model'].apply(
+        jax_side['params'], z_opt,
+        method=lambda m, zz: m.predict_properties(zz))
+    _, want = jax_decode_best(jax_side['model'], jax_side['params'],
+                              jax_side['vocab'], jax_avocab,
+                              np.asarray(z_opt), greedy=True,
+                              max_decode_step=150, log_steps=False)
+    code, out = _call(server['port'], '/optimize',
+                      {'smiles': smiles, 'homo': homo, 'lumo': lumo})
+    assert code == 200 and set(out) == {'smiles', 'homo', 'lumo'}
+    assert out['smiles'] == want
+    np.testing.assert_allclose(out['homo'], np.asarray(h), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(out['lumo'], np.asarray(l), rtol=0, atol=1e-5)
+    assert not np.allclose(np.asarray(z_opt), z, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize('payload,error', [
+    ({'smiles': ['CCO'], 'lumo': [0.0]}, "'homo'"),
+    ({'smiles': ['CCO'], 'homo': [0.0], 'lumo': [0.0], 'policy': 'bogus'},
+     'Error: property-optimizing choice "bogus" is not valid')])
+def test_optimize_errors_answer_500(server, payload, error):
+    """A body without ``homo`` and an unknown policy: 500 with the
+    exception's text, as the JAX server replies; it keeps serving."""
+    code, out = _call(server['port'], '/optimize', payload)
+    assert code == 500 and out == {'error': error}
+    assert _call(server['port'], '/health')[0] == 200
 
 
 def test_start_returns_the_server_on_all_interfaces(server):
