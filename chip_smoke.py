@@ -84,14 +84,27 @@ script exits non-zero:
              before and read just after.  Its first 3 steps are held to the
              JAX package's (``ggpm_tpu_torch/goldens/train_hopv.json``,
              which tests/test_torch_train.py recomputes) by the rule in
-             ``profile_train`` fixed before any card run; then it times an
-             epoch (train mols/s, host ms per step, the device's idle
-             share, launches per step, from ``profile_train.profile_epoch``)
-             and fails unless every kernel of the step launched.  Last, each
-             kernel of the step at the first batch's shapes against its
-             plain version (max abs error at most 1e-5) and against its
-             sum written out in the kernel's order (bit for bit), timed as
-             in phase 4 (``kernel_bench.train_cases``).
+             ``profile_train`` fixed before any card run.  Then two
+             fresh trainers from the same weights each train two epochs
+             in the JAX order, one eagerly and one through
+             ``Trainer.scan_steps``'s CUDA graphs (one captured per batch
+             signature, each flush of two or more replayed): every step's
+             metrics and the parameters, Adam moments and counts after
+             must be equal bit for bit, and each replayed step must launch
+             ``nei_sum`` / ``transpose_sum`` / ``gather_rows`` 3 / 22 / 20
+             times by the wrappers' counts and by the profiler's device
+             events (``train graph vs eager``: signatures captured, capture
+             seconds, the graphs' pools, peak memory).  Then it times
+             epochs eagerly and through graphs in turns (eager, graph,
+             graph, eager: ``train eager|graph turn i`` and ``train
+             turns``; train mols/s, host ms per step, device busy ms, the
+             device's idle share, launches per step, from
+             ``profile_train.profile_epoch``), each step launching 3 / 22
+             / 20, and fails unless every kernel of the step launched.
+             Last, each kernel of the step at the first batch's shapes
+             against its plain version (max abs error at most 1e-5) and
+             against its sum written out in the kernel's order (bit for
+             bit), timed as in phase 4 (``kernel_bench.train_cases``).
 8. optimize — the same server answers ``/optimize`` for the 64 molecules,
              the targets each molecule's own HOMO + 0.01 and LUMO − 0.01
              (Hartree): ``hard`` over HTTP (the body passes the policy
@@ -123,9 +136,11 @@ script exits non-zero:
              just after.  Its first 3 steps are held to the JAX package's
              (``ggpm_tpu_torch/goldens/train_propopt_hopv.json``, which
              tests/test_torch_propopt.py recomputes) by ``profile_train``'s
-             rule for it, fixed before any card run; then it times an
-             epoch as phase 7 does and fails unless every kernel of the
-             step launched.
+             rule for it, fixed before any card run; then the graph check
+             and the epochs in turns as phase 7 (the group norms and the
+             breaker's flags held too; ``finetune vs train`` beside the
+             prop step's), and fails unless every kernel of the step
+             launched.
 
 The line before the last is ``nvidia-smi``'s; the one before it a JSON
 object listing every kernel; the last line is
@@ -197,6 +212,16 @@ NEAR_TIE = 1e-4
 MAX_DIFFERING = 2
 # the optimize rule (docstring, phase 8)
 OPT_PRED_ATOL = 1e-4
+# a training step's launches of each kernel (phases 7 and 9): the node,
+# root and frontier readouts; their transposes and the depth loop's 20
+# rounds' (2 + 20); the 20 rounds
+STEP_LAUNCHES = {'nei_sum': 3.0, 'transpose_sum': 22.0, 'gather_rows': 20.0}
+# what the train and finetune phases print of each turn, eager and graph
+TURN_KEYS = ('train_mols_per_s', 'train_mols_per_s_with_prep', 'step_wall_ms',
+             'host_dispatch_ms_per_step', 'device_busy_ms_per_step',
+             'device_idle_share', 'replayed_mols_per_s',
+             'replayed_step_wall_ms', 'replayed_device_busy_ms_per_step',
+             'replayed_device_idle_share')
 
 
 def nei_sum_kinds(h, g):
@@ -515,11 +540,14 @@ def decode_phase(model, model_cpu, vocab, rows, answers, enc, batch,
         differ_from_jax=differ)
 
 
-def golden_train_epoch(name, trainer, batches, golden_path, **rule):
+def golden_train_epoch(name, trainer, make, batches, golden_path, **rule):
     """Phases 7 and 9: the golden steps of ``trainer`` held to the JAX
-    package's, then an epoch profiled; the counts are reset just before
-    and read just after, and every kernel must have launched.  Returns the
-    profile and the counts."""
+    package's, the eager and graph epochs held to each other
+    (``graph_vs_eager``, fresh trainers from ``make``), then epochs
+    profiled eager and through graphs in turns (eager, graph, graph,
+    eager); the counts are reset just before and read just after, and
+    every kernel must have launched.  Returns the first eager profile, the
+    counts, the turns and the graph check."""
     with open(golden_path) as f:
         golden = json.load(f)
     reset_counts()
@@ -533,45 +561,140 @@ def golden_train_epoch(name, trainer, batches, golden_path, **rule):
     if bad:
         raise AssertionError(f'{name} steps differ from the JAX '
                              f'package\'s: {bad}')
-    prof = profile_train.profile_epoch(trainer, batches)
+    check = graph_vs_eager(name, make, batches)
+    turns = {False: [], True: []}
+    for i, graph in enumerate((False, True, True, False)):
+        prof = profile_train.profile_epoch(trainer, batches, graph=graph)
+        turns[graph].append(prof)
+        print(f'{name} {"graph" if graph else "eager"} turn {i} '
+              + json.dumps(prof), flush=True)
+        # the device events of a whole epoch are printed, not held: the
+        # profiler may lose some of its 100,000 records (graph_vs_eager)
+        if prof['kernel_launches_per_step'] != STEP_LAUNCHES:
+            raise AssertionError(f'{name} turn {i}: launches per step '
+                                 f'{prof["kernel_launches_per_step"]}, '
+                                 f'expected {STEP_LAUNCHES}')
     counts = read_counts()
     if min(counts.values()) == 0:
         raise AssertionError(f'a kernel never launched on the {name} '
                              f'path: {counts}')
-    print(f'{name} ' + json.dumps(prof), flush=True)
-    return prof, counts
+    print(f'{name} turns ' + json.dumps({
+        k: {'eager': [p.get(k) for p in turns[False]],
+            'graph': [p.get(k) for p in turns[True]]} for k in TURN_KEYS}),
+        flush=True)
+    return turns[False][0], counts, turns, check
+
+
+def graph_vs_eager(name, make, batches):
+    """Two epochs from the same checkpoint in the JAX order, once eager
+    and once through graphs (``Trainer.scan_steps``; the first epoch
+    captures one graph per signature, the second replays only): every
+    step's metrics, breaker flag and group norms, and the parameters,
+    Adam moments and counts after, must be equal bit for bit.  Then every
+    replayed step runs again in a profiler window of its own: each must
+    launch ``STEP_LAUNCHES`` by the wrappers' counts, and by the device
+    events in each window that lost no records in the profiler
+    (``profile_train.check_replay_windows``; the windows that did are
+    printed).  Prints and returns the signatures captured, the
+    capture seconds, the graphs' pools and the peak memory."""
+    rows, states = {}, {}
+    for graph in (False, True):
+        tr = make()
+        groups = profile_train.flush_groups(tr, batches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows[graph] = []
+        for _ in range(2):
+            profile_train.run_epoch(tr, groups, graph, rows[graph])
+        torch.cuda.synchronize()
+        opt = getattr(tr.opt_state, 'groups', {'': tr.opt_state})
+        states[graph] = {f'{g}/{k}': getattr(st, k).clone()
+                         for g, st in opt.items()
+                         for k in ('flat', 'mu', 'nu', 'count_dev')}
+        if not graph:
+            del tr
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    differ = [f'step {i} {k}' for i, (e, g) in enumerate(
+        zip(rows[False], rows[True])) for k in e
+        if not torch.equal(bits(e[k]), bits(g[k]))]
+    differ += [k for k in states[False]
+               if not torch.equal(bits(states[False][k]),
+                                  bits(states[True][k]))]
+    windows = profile_train.replay_windows(tr, groups)
+    bad, lost = profile_train.check_replay_windows(windows, STEP_LAUNCHES)
+    out = dict(steps=len(rows[True]), differing=differ[:20],
+               n_differing=len(differ), keys=sorted(rows[True][0]),
+               **tr.graph_stats(),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               replayed_steps=len(windows),
+               launches_per_replayed_step=windows[0]['launches'],
+               device_launches_per_replayed_step=max(
+                   windows, key=lambda w: w['records'])['device'],
+               windows_with_lost_records=lost)
+    print(f'{name} graph vs eager ' + json.dumps(out), flush=True)
+    if differ or len(rows[True]) != 2 * len(batches):
+        raise AssertionError(f'{name}: graph and eager epochs differ at '
+                             f'{differ[:20]}')
+    if bad:
+        raise AssertionError(f'{name}: replayed steps (step, count, '
+                             f'launches) {bad}, expected {STEP_LAUNCHES}')
+    return out
+
+
+def device_scalars(trainer):
+    """The optimizer's learning rate and bias corrections on the card for
+    counts 1..3 epochs against the host's floats for them: how many
+    differ (the device form equals them bit for bit on the CPU)."""
+    st, opt = trainer.opt_state, trainer.opt_state.opt
+    counts = range(1, 3 * opt.steps_per_epoch + 1)
+    n = torch.tensor(list(counts), device='cuda')
+    bc1, bc2 = st.bias_corrections(n)
+    lr = st.schedule_t(n - 1)
+    f32 = lambda b, k: float(1 - torch.tensor(b, dtype=torch.float32) ** k)
+    host = {'bc1': [f32(opt.b1, k) for k in counts],
+            'bc2': [f32(opt.b2, k) for k in counts],
+            'lr': [opt.schedule(k - 1) for k in counts]}
+    dev = {'bc1': bc1.tolist(), 'bc2': bc2.tolist(), 'lr': lr.tolist()}
+    return dict(counts=len(counts), differing={
+        k: sum(a != b for a, b in zip(host[k], dev[k])) for k in host})
 
 
 def train_phase(vocab, batches):
-    """The training path: the golden steps, an epoch profiled, the counts
-    of the path, and the step's kernels at its shapes.  Returns what the
-    phase prints, the counts and the kernel rows."""
+    """The training path: the golden steps, the graph check, epochs
+    profiled in turns, the counts of the path, and the step's kernels at
+    its shapes.  Returns the first eager profile, the counts, the kernel
+    rows, the turns and the graph check."""
     trainer, _ = profile_train.canonical_trainer('cuda', vocab)
-    prof, counts = golden_train_epoch('train', trainer, batches,
-                                      TRAIN_GOLDEN)
+    print('train device scalars ' + json.dumps(device_scalars(trainer)),
+          flush=True)
+    prof, counts, turns, check = golden_train_epoch(
+        'train', trainer,
+        lambda: profile_train.canonical_trainer('cuda', vocab)[0], batches,
+        TRAIN_GOLDEN)
     rows = {}
     batch = trainer.device_batch(trainer.host_batch(batches[0]))
     gen = torch.Generator(device='cuda').manual_seed(1)
     for row in checked(kernel_bench.measure(
             kernel_bench.train_cases(batch, gen), floor_ms())):
         rows.setdefault(row['kernel'], {})[row['case']] = row
-    return prof, counts, rows
+    return prof, counts, rows, turns, check
 
 
-def finetune_phase(vocab, batches, train_prof):
-    """The prop-opt fine-tuning path: its golden steps and an epoch
-    profiled, beside the prop step's (``train_prof``).  Returns the
-    profile and the counts."""
+def finetune_phase(vocab, batches, train_turns):
+    """The prop-opt fine-tuning path: its golden steps, the graph check
+    and epochs profiled in turns, beside the prop step's
+    (``train_turns``).  Returns the first eager profile, the counts and
+    the graph check."""
     trainer, _ = profile_train.finetune_trainer('cuda')
-    prof, counts = golden_train_epoch(
-        'finetune', trainer, batches, FINETUNE_GOLDEN,
+    prof, counts, turns, check = golden_train_epoch(
+        'finetune', trainer, lambda: profile_train.finetune_trainer('cuda')[0],
+        batches, FINETUNE_GOLDEN,
         later_update_rtol=profile_train.FINETUNE_LATER_UPDATE_RTOL)
     print('finetune vs train ' + json.dumps({
-        k: [prof[k], train_prof[k]] for k in (
-            'train_mols_per_s', 'step_wall_ms', 'host_dispatch_ms_per_step',
-            'device_busy_ms_per_step', 'device_idle_share',
-            'kernel_launches_per_step')}), flush=True)
-    return prof, counts
+        k: {mode: [[p.get(k) for p in t[graph]] for t in (turns, train_turns)]
+            for mode, graph in (('eager', False), ('graph', True))}
+        for k in TURN_KEYS}), flush=True)
+    return prof, counts, check
 
 
 def optimize_requests(server, port, rows, golden):
@@ -786,11 +909,13 @@ def main() -> int:
     if len(train_batches) != profile_train.STEPS_PER_EPOCH:
         raise AssertionError(f'{len(train_batches)} HOPV batches, need '
                              f'{profile_train.STEPS_PER_EPOCH}')
-    prof, tcounts, train_rows = train_phase(vocab, train_batches)
+    prof, tcounts, train_rows, train_turns, train_check = train_phase(
+        vocab, train_batches)
     phase('train', t0)
 
     t0 = time.perf_counter()
-    ft_prof, fcounts = finetune_phase(vocab, train_batches, prof)
+    ft_prof, fcounts, ft_check = finetune_phase(vocab, train_batches,
+                                                train_turns)
     counts = {name: counts[name] + dcounts[name] + ocounts[name] +
               tcounts[name] + fcounts[name] for name in counts}
     phase('finetune', t0)
@@ -815,6 +940,9 @@ def main() -> int:
             launches_per_step=prof['kernel_launches_per_step'][name],
             launches_per_finetune_step=ft_prof['kernel_launches_per_step'][
                 name],
+            launches_per_replayed_step={
+                'train': train_check['launches_per_replayed_step'][name],
+                'finetune': ft_check['launches_per_replayed_step'][name]},
             **{key: r[key] for key in keys},
             max_abs_err_all_cases=max(x['max_abs_err']
                                       for x in rows_of.values()),

@@ -265,17 +265,27 @@ def train_tables(batch: Dict) -> Dict:
       readout and its transpose over the ``num_mess + B`` state rows.
 
     ``tree['bgraph_t'/'bgraph_tm']`` (the depth loop's) come from
-    ``level_to_dict``.  Widths are sized from the data (``k=None``)."""
+    ``level_to_dict``.  Every width is a bound the bucket shapes give, so
+    the tables' shapes, and with them the
+    device batch's signature, follow the host batch's: a message is one
+    node's incoming message, so it appears once in ``agraph`` and in the
+    root rows (width 1); and a frontier slot reads the incoming messages of
+    its node, which is the frontier once per child and once more (the
+    backtrack to its parent, or the root's last step), no more often than
+    its row of ``agraph_dec`` has entries (the root's holds its virtual
+    root message too), so the frontier table's own width bounds its
+    transpose's.  A table that broke a bound would raise.  Masked columns
+    add nothing (``transpose_sum`` loads none on the card)."""
     tree, plan = dict(batch['tree']), dict(batch['plan'])
     n_mess = tree['fmess'].shape[0]
     roots = tree['agraph'][tree['scope'][:, 0]]
-    tree['agraph_t'], tree['agraph_tm'] = build_transpose(tree['agraph'],
-                                                          n_mess)
-    tree['root_t'], tree['root_tm'] = build_transpose(roots, n_mess)
     fr = frontier_table(tree, plan)
+    tree['agraph_t'], tree['agraph_tm'] = build_transpose(tree['agraph'],
+                                                          n_mess, 1)
+    tree['root_t'], tree['root_tm'] = build_transpose(roots, n_mess, 1)
     plan['frontier'] = fr
     plan['frontier_t'], plan['frontier_tm'] = build_transpose(
-        fr, n_mess + len(plan['root_clab']))
+        fr, n_mess + len(plan['root_clab']), fr.shape[1])
     return dict(batch, tree=tree, plan=plan)
 
 

@@ -35,8 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..graph.vocab import PairVocab, Vocab
-from ..ops.gather_rows import gather_rows
-from ..ops.nei_sum import nei_sum, transpose_sum
+from ..ops import COUNTED
 from .inc_graph import IncGraph, IncTree
 
 
@@ -301,7 +300,6 @@ CUDA_LOOKAHEAD = 1
 CUDA_LADDER = ()
 CPU_LADDER = (64,)
 _PROPOSERS_MAX = 6         # captured graphs kept (rung x width)
-_COUNTED = (nei_sum, transpose_sum, gather_rows)   # kernel launch counts
 
 _TABLES: Dict[int, tuple] = {}
 _PROPOSERS: "OrderedDict" = OrderedDict()
@@ -609,12 +607,12 @@ class Proposer:
         with torch.cuda.stream(side):
             self._step()         # builds and loads the kernels, warms caches
         torch.cuda.current_stream(self.mask.device).wait_stream(side)
-        before = [w.captured for w in _COUNTED]
+        before = [w.captured for w in COUNTED]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self._step()
         self.replay_launches = [(w, w.captured - n)
-                                for w, n in zip(_COUNTED, before)
+                                for w, n in zip(COUNTED, before)
                                 if w.captured > n]
         self.graph = graph
 

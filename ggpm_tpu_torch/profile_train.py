@@ -10,18 +10,22 @@ The canonical configuration (``prop``: LSTM, hidden = embed = 250, latent
 anneal 0.9 per epoch of 17 steps) from the ``vae/`` weights of the trained
 HOPV checkpoint, on the 17 full batches of 20 of ``data/hopv15.csv``
 (padded to their bucket shapes, lane-packed, as ``cli/vae_train.py`` and
-the JAX ``Trainer`` make them).  After one untimed epoch it reports, on the
-card: train mols/s over one epoch of steps on batches already on the
-device (``bench.py``'s definition), and through ``Trainer.train_epoch``
-with the host's batch preparation included; host ms per step, split into
-batch preparation and the step's dispatch; device busy ms and the device's
+the JAX ``Trainer`` make them).  It profiles an epoch of eager steps, then
+one through ``Trainer.scan_steps``'s CUDA graphs (each flush of two or
+more replayed, a flush of one eager, as the JAX ``Trainer`` steps them).
+After one untimed epoch each reports, on the card: train mols/s over one
+epoch of steps on batches already on the device (``bench.py``'s
+definition), and through ``Trainer.train_epoch`` with the host's batch
+preparation included; host ms per step, split into batch preparation and
+the step's dispatch (or replay); device busy ms and the device's
 idle share per step, both over one epoch run under torch.profiler (its
 wall time is printed beside them; the profiler slows the host more than
 the device, so the share may read higher than an unprofiled epoch's);
 launches per step, in all and per kernel (B1 ``nei_sum``, its transpose
-``transpose_sum``, the row gather ``gather_rows``).  Prints one JSON
-object (and writes it to ``--out``).  Needs a CUDA device; it has no CPU
-mode.
+``transpose_sum``, the row gather ``gather_rows``); through graphs, the
+graphs captured, their capture seconds and pools, and the replayed steps
+alone.  Prints one JSON object (and writes it to ``--out``).  Needs a
+CUDA device; it has no CPU mode.
 """
 
 from __future__ import annotations
@@ -276,27 +280,109 @@ def _counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch]) -> dict:
+def flush_groups(trainer: Trainer, batches: List[MolGraphBatch]
+                 ) -> List[List[dict]]:
+    """``batches`` on the device, grouped in the flushes the JAX
+    ``Trainer`` steps through them by (``flushes``)."""
+    hosts = [trainer.host_batch(mb) for mb in batches]
+    pairs = [(signature(h), trainer.device_batch(h)) for h in hosts]
+    return [[dev for _, dev in group]
+            for group in flushes(pairs, lambda x: x[0])]
+
+
+def run_epoch(trainer: Trainer, groups: List[List[dict]], graph: bool,
+              rows: Optional[list] = None) -> List[float]:
+    """One epoch over device batches in flush ``groups`` through
+    ``scan_steps``: a flush of two or more through CUDA graphs with
+    ``graph``, a flush of one eagerly (``train_step``).  Returns each
+    step's host seconds (a flush's divided among its steps); with
+    ``rows``, appends each step's metrics, breaker flag and group norms
+    (device values)."""
+    out = []
+    for group in groups:
+        t0 = time.perf_counter()
+        metrics, aux = trainer.scan_steps(group,
+                                          graph=graph and len(group) > 1)
+        dt = time.perf_counter() - t0
+        out += [dt / len(group)] * len(group)
+        if rows is not None:
+            for i in range(len(group)):
+                rows.append(dict(
+                    {k: v[i] for k, v in metrics.items()},
+                    **({'clipped': aux['clipped'][i]}
+                       if isinstance(aux['clipped'], torch.Tensor) else {}),
+                    **{f'group {g}': v[i]
+                       for g, v in aux.get('group_norms', {}).items()}))
+    return out
+
+
+def replay_windows(trainer: Trainer, groups: List[List[dict]]
+                   ) -> List[dict]:
+    """Each step of the flushes of two or more of ``groups`` (their graphs
+    already captured) replayed in a profiler window of its own: the
+    batch's signature, the wrappers' launches (``launches``), the device
+    launches of each kernel (``device``) and the window's device records
+    (``records``)."""
+    out = []
+    for db in (db for g in groups if len(g) > 1 for db in g):
+        before = _counts()
+
+        def replay(db=db):
+            trainer.scan_steps([db])
+            torch.cuda.synchronize()
+        _, events = profiled(replay)
+        out.append(dict(
+            signature=signature(db),
+            launches={k: float(v - before[k]) for k, v in _counts().items()},
+            device={name: float(sum(e.count for e in events
+                                    if _kernel_of(e.key) == name))
+                    for name in KERNELS},
+            records=sum(e.count for e in events)))
+    return out
+
+
+def check_replay_windows(windows: List[dict], expected: Dict[str, float]
+                         ) -> Tuple[list, list]:
+    """Where ``replay_windows`` break ``expected`` launches a replayed
+    step, and the windows the profiler lost records in.  The wrappers'
+    counts are held in every window.  Every replay of one graph runs the
+    same kernels, so a window with fewer device records than the most a
+    window of its signature holds lost records in the profiler (on the
+    card it lost 364 of 105,600 in one of three identical windows, and 14
+    of one window's 20 ``gather_rows``); the device launches are held in
+    the windows that hold the most, one or more a signature."""
+    most: Dict[Tuple, int] = {}
+    for w in windows:
+        most[w['signature']] = max(most.get(w['signature'], 0), w['records'])
+    bad = [(i, 'launches', w['launches']) for i, w in enumerate(windows)
+           if w['launches'] != expected]
+    bad += [(i, 'device', w['device']) for i, w in enumerate(windows)
+            if w['records'] == most[w['signature']] and
+            w['device'] != expected]
+    lost = [(i, most[w['signature']] - w['records'])
+            for i, w in enumerate(windows)
+            if w['records'] < most[w['signature']]]
+    return bad, lost
+
+
+def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch],
+                  graph: bool = False) -> dict:
     """Train mols/s and where a step's time goes, on the card, after one
-    untimed epoch over ``batches``."""
+    untimed epoch over ``batches``, with the steps eager or, with
+    ``graph``, every flush of two or more replayed from the trainer's
+    captured step graphs (``Trainer.scan_steps``)."""
     n_mols = BATCH_SIZE * len(batches)
-    hosts, prep_s = [], []
+    prep_s = []
     for mb in batches:
         t0 = time.perf_counter()
-        host = trainer.host_batch(mb)
-        dev = trainer.device_batch(host)
+        trainer.device_batch(trainer.host_batch(mb))
         prep_s.append(time.perf_counter() - t0)
-        hosts.append((host, dev))
     # the JAX Trainer's order over the pre-uploaded batches
-    ordered = [dev for group in flushes(hosts, lambda x: signature(x[0]))
-               for _, dev in group]
+    groups = flush_groups(trainer, batches)
+    n_steps = sum(len(g) for g in groups)
 
     def epoch_on_device():
-        dispatch = []
-        for dev in ordered:
-            t0 = time.perf_counter()
-            trainer.train_step(dev)
-            dispatch.append(time.perf_counter() - t0)
+        dispatch = run_epoch(trainer, groups, graph)
         torch.cuda.synchronize()
         return dispatch
 
@@ -305,10 +391,10 @@ def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch]) -> dict:
     t0 = time.perf_counter()
     dispatch = epoch_on_device()
     wall = time.perf_counter() - t0
-    per_kernel = {k: (v - before[k]) / len(ordered)
+    per_kernel = {k: (v - before[k]) / n_steps
                   for k, v in _counts().items()}
     t0 = time.perf_counter()
-    trainer.train_epoch(batches, log=lambda *_: None)
+    trainer.train_epoch(batches, log=lambda *_: None, graph=graph)
     torch.cuda.synchronize()
     wall_prep = time.perf_counter() - t0
     walls = []
@@ -322,24 +408,50 @@ def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch]) -> dict:
     # profiled epoch (the profiler adds host time, not device time)
     busy_us, events = profiled(timed_epoch)
     copies = [e for e in events if e.key.startswith(('Memcpy', 'Memset'))]
-    return dict(
-        steps=len(ordered), mols_per_step=BATCH_SIZE,
+    out = dict(
+        graph=graph, steps=n_steps, mols_per_step=BATCH_SIZE,
         train_mols_per_s=n_mols / wall,
         train_mols_per_s_with_prep=n_mols / wall_prep,
-        epoch_wall_s=wall, step_wall_ms=1e3 * wall / len(ordered),
+        epoch_wall_s=wall, step_wall_ms=1e3 * wall / n_steps,
         host_prep_ms_per_step=1e3 * float(np.median(prep_s)),
         host_dispatch_ms_per_step=1e3 * float(np.median(dispatch)),
         profiled_epoch_wall_s=walls[0],
-        device_busy_ms_per_step=busy_us / 1e3 / len(ordered),
+        device_busy_ms_per_step=busy_us / 1e3 / n_steps,
         device_idle_share=1.0 - busy_us / 1e6 / walls[0],
-        device_ops_per_step=sum(e.count for e in events) / len(ordered),
-        device_copies_per_step=sum(e.count for e in copies) / len(ordered),
+        device_ops_per_step=sum(e.count for e in events) / n_steps,
+        device_copies_per_step=sum(e.count for e in copies) / n_steps,
         kernel_launches_per_step=per_kernel,
+        kernel_device_launches_per_step={
+            name: sum(e.count for e in events
+                      if _kernel_of(e.key) == name) / n_steps
+            for name in KERNELS},
         kernel_device_us_per_step={
             name: sum(_device_us(e) for e in events
-                      if _kernel_of(e.key) == name) / len(ordered)
+                      if _kernel_of(e.key) == name) / n_steps
             for name in KERNELS},
-        top_device_kernels=top_kernels(events, len(ordered), n=12))
+        top_device_kernels=top_kernels(events, n_steps, n=12))
+    if graph:
+        # the replayed steps alone (the flushes of two or more), the
+        # window's busy time and wall from the same profiled run
+        replayed = [g for g in groups if len(g) > 1]
+        n = sum(len(g) for g in replayed)
+        walls.clear()
+
+        def timed_replays():
+            t0 = time.perf_counter()
+            run_epoch(trainer, replayed, True)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        timed_replays()
+        busy_r, _ = profiled(timed_replays)
+        out.update(trainer.graph_stats(),
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   replayed_steps=n,
+                   replayed_mols_per_s=BATCH_SIZE * n / walls[0],
+                   replayed_step_wall_ms=1e3 * walls[0] / n,
+                   replayed_device_busy_ms_per_step=busy_r / 1e3 / n,
+                   replayed_device_idle_share=1.0 - busy_r / 1e6 / walls[1])
+    return out
 
 
 def main(argv=None) -> dict:
@@ -353,7 +465,9 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     trainer, vocab = canonical_trainer('cuda')
     _, batches = hopv_batches(vocab=vocab)
-    out = dict(device=nvidia_smi(), **profile_epoch(trainer, batches))
+    out = dict(device=nvidia_smi(),
+               eager=profile_epoch(trainer, batches),
+               graph=profile_epoch(trainer, batches, graph=True))
     text = json.dumps(out)
     print(text, flush=True)
     if args.out:

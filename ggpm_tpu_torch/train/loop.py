@@ -1,25 +1,33 @@
-"""Training loop: train step, metric accumulation, checkpoints (counterpart
-of ``ggpm_tpu/train/loop.py``: ``Trainer`` with ``train_step``,
-``train_epoch``, ``evaluate``, ``MetricAccumulator``; ``scan_steps`` (a TPU
-dispatch device), ``dp_step`` and meshes (ROADMAP A7) are not ported).
+"""Training loop: train step, scanned steps, metric accumulation,
+checkpoints (counterpart of ``ggpm_tpu/train/loop.py``: ``Trainer`` with
+``train_step``, ``scan_steps``, ``train_epoch``, ``evaluate``,
+``MetricAccumulator``; ``dp_step`` and meshes, ROADMAP A7, are not
+ported).
 
 Reference driver semantics: reference vae_train.py:60-111 (Adam +
 exponential decay + grad-clip 20, print every ``print_iter``, checkpoint per
-epoch/``save_iter``).  A step runs eagerly on the model's device; metrics
-stay there until a print boundary reads them.
+epoch/``save_iter``).  Metrics stay on the device until a print boundary
+reads them.  Where the JAX package runs K same-shape steps as one
+``lax.scan`` call (``make_scan_train_step``), the port on the card replays
+one captured CUDA graph per step (``StepGraph``: forward, backward and the
+optimizer's update), captured once per device-batch signature; on the CPU
+``scan_steps`` runs K eager steps, the plain version.
 """
 
 from __future__ import annotations
 
+import inspect
 import time
 from collections.abc import Mapping
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, Iterable, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from ..bridge import to_flax_tree
 from ..data.batching import compact_plan_dict, to_model_batch, train_tables
+from ..ops import COUNTED
 from . import checkpoint as ckpt
 from .optim import Adam, MultiAdam
 
@@ -66,8 +74,9 @@ def flushes(items: Iterable, key: Callable, scan_chunk: int = 8):
 
 
 class MetricAccumulator:
-    """Accumulates metric dicts of device scalars; values are read (one
-    host sync) only at ``mean()``."""
+    """Accumulates metric dicts of device values, scalars of a step or
+    [K] rows of ``Trainer.scan_steps``; values are read (one host sync
+    each) only at ``mean()``, the mean over every step."""
 
     def __init__(self):
         self.pending = []
@@ -81,9 +90,9 @@ class MetricAccumulator:
         keys = sorted({k for m in self.pending for k in m})
         out = {}
         for k in keys:
-            vals = [torch.as_tensor(m[k], dtype=torch.float64).cpu()
-                    for m in self.pending if k in m]
-            out[k] = float(torch.stack(vals).mean())
+            vals = [torch.as_tensor(m[k], dtype=torch.float64).reshape(-1)
+                    .cpu() for m in self.pending if k in m]
+            out[k] = float(torch.cat(vals).mean())
         return out
 
     def reset(self) -> None:
@@ -92,11 +101,88 @@ class MetricAccumulator:
 
 def count_clipped(flags: list) -> int:
     """How many of a list of circuit-breaker flags are set: host bools
-    (``PropertyVAE``) and device bools (``PropOptVAE``), the latter read
-    in one sync."""
-    dev = [f for f in flags if isinstance(f, torch.Tensor)]
+    (``PropertyVAE``) and device bools, one a step or [K] of a
+    ``scan_steps`` (``PropOptVAE``), the latter read in one sync."""
+    dev = [f.reshape(-1) for f in flags if isinstance(f, torch.Tensor)]
     n = sum(bool(f) for f in flags if not isinstance(f, torch.Tensor))
-    return n + (int(torch.stack(dev).sum()) if dev else 0)
+    return n + (int(torch.cat(dev).sum()) if dev else 0)
+
+
+def _leaves(batch: Mapping) -> list:
+    """A device batch's tensors in ``signature``'s order."""
+    out = []
+    for k in sorted(batch):
+        v = batch[k]
+        out.extend(_leaves(v) if isinstance(v, Mapping) else [v])
+    return out
+
+
+def _static_copy(batch: Mapping, shared: torch.Tensor) -> Dict[str, Any]:
+    """A copy of a device batch in tensors of its own, but ``shared`` (the
+    vocab mask), which stays the same tensor."""
+    return {k: _static_copy(v, shared) if isinstance(v, Mapping)
+            else v if v is shared else v.clone() for k, v in batch.items()}
+
+
+class StepGraph:
+    """One training step captured as a ``torch.cuda.CUDAGraph`` for one
+    device-batch signature: forward, backward and the optimizer's update,
+    with the kernels' launches inside.
+
+    Its static inputs (a copy of the batch, ``eps`` and ``clip_eps``) are
+    allocated before the capture, outside the graph's private memory pool
+    (one pool per graph: nothing of one graph's pool is live across
+    another's replay, but separate pools need no argument that it stays
+    so); ``run`` copies a batch into them, draws the noise into them from the
+    trainer's generator, replays, and copies the step's row of metrics out
+    before the next replay of any graph overwrites it.  Each replay adds
+    the launches its capture recorded to the wrappers' counts."""
+
+    def __init__(self, trainer: 'Trainer', batch: Dict[str, Any],
+                 stream: torch.cuda.Stream):
+        self.inputs = _static_copy(batch, trainer._mask_dev)
+        self.eps, self.clip_eps = trainer._noise(batch, static=True)
+        before = [w.captured for w in COUNTED]
+        mem0 = torch.cuda.memory_reserved(stream.device)
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        # the capture registers the device's default generator (dropout's);
+        # a capture that fails would leave it in capture mode
+        gen = torch.cuda.default_generators[stream.device.index]
+        saved = gen.clone_state()
+        try:
+            with torch.cuda.stream(stream):
+                self.graph.capture_begin()
+                try:
+                    metrics, aux = trainer._body(self.inputs, self.eps,
+                                                 self.clip_eps)
+                    self.out = trainer._row(metrics, aux)
+                finally:
+                    self.graph.capture_end()
+        except BaseException:
+            gen.graphsafe_set_state(saved)
+            raise
+        torch.cuda.synchronize(stream.device)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(stream.device) - mem0
+        self.launches = [(w, w.captured - n) for w, n in zip(COUNTED, before)
+                         if w.captured > n]
+
+    def run(self, trainer: 'Trainer', batch: Dict[str, Any]
+            ) -> torch.Tensor:
+        """One step on ``batch``; returns its row (``Trainer._row``)."""
+        for dst, src in zip(_leaves(self.inputs), _leaves(batch)):
+            if dst is trainer._mask_dev:
+                if src is not dst:
+                    raise ValueError('a graph step takes the trainer\'s '
+                                     'vocab mask (Trainer.device_batch)')
+            else:
+                dst.copy_(src)
+        trainer._noise(batch, out=(self.eps, self.clip_eps))
+        self.graph.replay()
+        for w, n in self.launches:
+            w.launches += n
+        return self.out.clone()
 
 
 class Trainer:
@@ -109,7 +195,15 @@ class Trainer:
     the model's named parameters here (they move into its flat buffers,
     see ``optim.Adam.attach``), after the model is moved to ``device``;
     weights loaded later with ``bridge.load_flax_params`` land in the same
-    buffers."""
+    buffers.
+
+    A step reads no host value that changes from step to step: β comes
+    from a float64 device copy of ``total_step`` (``_step_dev``), the
+    learning rate and bias corrections from the optimizer's device counts,
+    and the noise (``eps``, and ``clip_eps`` for a model that takes it) is
+    drawn from ``gen`` before the model runs.  So the same step can be
+    captured once and replayed (``scan_steps``); ``graphs`` keeps the
+    captures, one per device-batch signature."""
 
     def __init__(self, model, optimizer: Union[Adam, MultiAdam],
                  vocab_mask: np.ndarray,
@@ -135,6 +229,14 @@ class Trainer:
         self.total_step = 0
         self.n_clipped = 0
         self.mols_seen = 0
+        self._draws_clip = 'clip_eps' in inspect.signature(
+            self.model.forward).parameters
+        self._step_dev = torch.zeros((), dtype=torch.float64,
+                                     device=self.device)
+        self._step_dev_at = 0           # the total_step it holds
+        self.graphs: Dict[Tuple, StepGraph] = {}
+        self._layout: Optional[Tuple] = None
+        self._stream = None
 
     # -- host side ---------------------------------------------------------
     def host_batch(self, mb) -> Dict[str, Any]:
@@ -153,38 +255,187 @@ class Trainer:
         (``train_tables``), on the device."""
         return to_device(train_tables(host), self.device, self._mask_dev)
 
-    # -- steps -------------------------------------------------------------
-    def _beta(self, step_idx: float) -> float:
-        if self.beta_warmup_steps > 0:
-            return self.beta * min(step_idx / self.beta_warmup_steps, 1.0)
-        return self.beta
+    # -- the step on the device ---------------------------------------------
+    def _sync_step(self) -> None:
+        """Bring the device's step index to the host's (a no-op unless
+        ``total_step`` was set from outside)."""
+        if self._step_dev_at != self.total_step:
+            self._step_dev.fill_(float(self.total_step))
+            self._step_dev_at = self.total_step
 
-    def train_step(self, batch: Dict[str, Any], step_idx=None,
-                   eps: Optional[torch.Tensor] = None):
-        """One optimizer step on a device batch; returns (metrics, aux)
-        with ``GNorm``, the gradients' global norm before clipping.
-        Advances ``total_step``."""
-        idx = float(self.total_step if step_idx is None else step_idx)
+    def _beta_t(self, idx: Optional[torch.Tensor] = None):
+        """β of the step at index ``idx`` (default ``_step_dev``):
+        ``beta · min(idx / beta_warmup_steps, 1)`` in float64 on the
+        device, as the host computed it, then rounded to float32 as the
+        model's ``beta · kl`` rounds it; ``beta`` itself without warmup."""
+        if self.beta_warmup_steps <= 0:
+            return self.beta
+        idx = self._step_dev if idx is None else idx
+        # divided by a device scalar: CUDA divides by a host scalar as a
+        # product with its reciprocal, which may differ in the last bit
+        warmup = torch.full_like(idx, float(self.beta_warmup_steps))
+        return (torch.clamp(idx / warmup, max=1.0) * self.beta).float()
+
+    def _noise(self, batch: Mapping, static: bool = False, out=None,
+               eps: bool = True):
+        """The step's ``(eps, clip_eps)`` drawn from ``gen`` in the order
+        the model would draw them (None where it draws none, and for
+        ``eps`` without ``eps``): fresh, into ``out``, or, with
+        ``static``, empty tensors of their shapes."""
+        shapes = ((batch['tree']['scope'].shape[0],
+                   self.model.cfg.latent_size)
+                  if self.perturb_z and eps else None,
+                  () if self._draws_clip else None)
+        res = []
+        for i, shape in enumerate(shapes):
+            if shape is None:
+                res.append(None)
+            elif static:
+                res.append(torch.empty(shape, device=self.device))
+            else:
+                res.append(torch.randn(shape, generator=self.gen,
+                                       device=self.device,
+                                       out=None if out is None else out[i]))
+        return tuple(res)
+
+    def _body(self, batch: Dict[str, Any], eps, clip_eps, beta=None):
+        """One optimizer step from the device's state alone: forward,
+        backward, the optimizer's update, and the device step index
+        advanced.  Returns (metrics, aux) as device values."""
         self.model.train()
         for p in self.opt_state.params:
             p.grad = None
-        loss, metrics, aux = self.model(batch, self._beta(idx), eps=eps,
-                                        perturb_z=self.perturb_z,
-                                        generator=self.gen)
+        extra = {} if clip_eps is None else {'clip_eps': clip_eps}
+        loss, metrics, aux = self.model(
+            batch, self._beta_t() if beta is None else beta, eps=eps,
+            perturb_z=self.perturb_z, generator=self.gen, **extra)
         loss.backward()
-        gnorm = self.opt_state.step()
-        self.total_step += 1
+        gnorm = self.opt_state.update()
+        self._step_dev += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         return dict(metrics, GNorm=gnorm), aux
 
+    def _advance(self) -> None:
+        """The host's side of a step, eager or replayed."""
+        self.opt_state.advance()
+        self.total_step += 1
+        self._step_dev_at += 1
+
+    def _row(self, metrics: Dict[str, Any], aux: Dict[str, Any]
+             ) -> torch.Tensor:
+        """A step's metrics, per-group gradient norms and breaker flag as
+        one float32 vector laid out as ``_layout``."""
+        groups = getattr(self.opt_state, 'group_norms', {})
+        clipped = aux.get('clipped')
+        layout = (tuple(sorted(metrics)), tuple(groups),
+                  isinstance(clipped, torch.Tensor))
+        if self._layout is None:
+            self._layout = layout
+        if layout != self._layout:
+            raise ValueError(f'step outputs {layout}, expected '
+                             f'{self._layout}')
+        vals = [metrics[k] for k in layout[0]] + [groups[g] for g in layout[1]]
+        if layout[2]:
+            vals.append(clipped)
+        return torch.stack([v.float() for v in vals])
+
+    def _unpack(self, rows: torch.Tensor):
+        """``scan_steps``'s (metrics, aux) from its [K, n] rows."""
+        keys, groups, has_clip = self._layout
+        metrics = {k: rows[:, i] for i, k in enumerate(keys)}
+        aux = {'clipped': rows[:, -1].bool() if has_clip else False}
+        if groups:
+            aux['group_norms'] = {g: rows[:, len(keys) + i]
+                                  for i, g in enumerate(groups)}
+        return metrics, aux
+
+    # -- steps -------------------------------------------------------------
+    def train_step(self, batch: Dict[str, Any], step_idx=None,
+                   eps: Optional[torch.Tensor] = None):
+        """One optimizer step on a device batch, eagerly; returns (metrics,
+        aux) with ``GNorm``, the gradients' global norm before clipping.
+        ``eps`` replaces the latent noise drawn from ``gen``; ``step_idx``
+        the step index β is warmed up by.  Advances ``total_step``."""
+        self._sync_step()
+        drawn, clip_eps = self._noise(batch, eps=eps is None)
+        beta = None
+        if step_idx is not None and self.beta_warmup_steps > 0:
+            beta = self._beta_t(torch.tensor(float(step_idx),
+                                             dtype=torch.float64,
+                                             device=self.device))
+        out = self._body(batch, drawn if eps is None else eps, clip_eps,
+                         beta)
+        self._advance()
+        return out
+
+    def scan_steps(self, batches: Sequence[Dict[str, Any]],
+                   graph: Optional[bool] = None):
+        """K optimizer steps, one per device batch of ``batches``, in
+        order (counterpart of the JAX ``Trainer.scan_steps`` over
+        ``stack_batches(batches)``).  Returns (metrics, aux) of [K] device
+        rows, as the JAX scan stacks them, with ``aux['group_norms']``
+        under a per-group optimizer.
+
+        With ``graph`` (the default on CUDA; CUDA only) each step is a
+        replay of the ``StepGraph`` of its batch's signature, captured at
+        the signature's first step: that step runs eagerly on a side
+        stream as its own step (the warm-up a capture needs) and the
+        capture follows.  A capture or replay that fails raises; nothing
+        falls back to eager steps.  Without it, K ``train_step``s."""
+        if graph is None:
+            graph = self.device.type == 'cuda'
+        if not graph:
+            return self._unpack(torch.stack(
+                [self._row(*self.train_step(db)) for db in batches]))
+        if self.device.type != 'cuda':
+            raise ValueError('a CUDA graph needs a CUDA device')
+        self._sync_step()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        rows = []
+        for db in batches:
+            key = (signature(db), self.beta, self.beta_warmup_steps,
+                   self.perturb_z)
+            g = self.graphs.get(key)
+            if g is None:
+                rows.append(self._warm_up(db))
+                self.graphs[key] = StepGraph(self, db, self._stream)
+            else:
+                rows.append(g.run(self, db))
+                self._advance()
+        return self._unpack(torch.stack(rows))
+
+    def _warm_up(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """The eager step of a signature's first batch, on the capture's
+        side stream; returns its row."""
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            row = self._row(*self._body(batch, *self._noise(batch)))
+        cur.wait_stream(self._stream)
+        row.record_stream(cur)
+        self._advance()
+        return row
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """The captured step graphs: how many, the seconds their captures
+        took, and the memory their pools reserved."""
+        return dict(signatures=len(self.graphs),
+                    capture_s=sum(g.capture_s for g in self.graphs.values()),
+                    pool_bytes=sum(g.pool_bytes for g in self.graphs.values()))
+
     def train_epoch(self, data: Iterable, epoch: int = 0,
-                    log: Callable = print, scan_chunk: int = 8) -> bool:
+                    log: Callable = print, scan_chunk: int = 8,
+                    graph: Optional[bool] = None) -> bool:
         """One epoch.  Batches are buffered per shape signature and run
-        ``scan_chunk`` at a time; the buckets left at the end run in the
-        order they were opened.  This is the order in which the JAX
-        ``Trainer`` takes its steps (loop.py:474-484), so both follow the
-        same parameter trajectory.  Returns True when the negative-loss
-        circuit breaker stops the run: its flags stay on the device, and
+        ``scan_chunk`` at a time, a flush of two or more through
+        ``scan_steps`` (CUDA graphs on the card), of one through
+        ``train_step``; the buckets left at the end run in the order they
+        were opened (``graph`` as ``scan_steps`` takes it).  This is the
+        order in which the JAX ``Trainer`` takes its steps
+        (loop.py:474-484), so both follow the same parameter trajectory.
+        Returns True when the negative-loss circuit breaker stops the run:
+        its flags stay on the device, and
         are counted at each print boundary and at the epoch's end, where
         ``clip_break_count`` of them in the run stop it."""
         acc = MetricAccumulator()
@@ -195,13 +446,16 @@ class Trainer:
         next_save = None
         if self.save_iter > 0:
             next_save = (self.total_step // self.save_iter + 1) * self.save_iter
-        def run(db_list):
-            for db in db_list:
-                metrics, aux = self.train_step(db)
-                self.mols_seen += len(db['plan']['root_clab'])
-                acc.add(metrics)
-                clipped_flags.append(aux.get('clipped', False))
 
+        def run(db_list):
+            if len(db_list) == 1:
+                metrics, aux = self.train_step(db_list[0])
+            else:
+                metrics, aux = self.scan_steps(db_list, graph=graph)
+            for db in db_list:
+                self.mols_seen += len(db['plan']['root_clab'])
+            acc.add(metrics)
+            clipped_flags.append(aux.get('clipped', False))
         def boundary() -> bool:
             nonlocal next_print, next_save
             if self.total_step >= next_print:

@@ -64,8 +64,25 @@ class Adam:
                          torch.zeros_like(flat))
 
 
+def _pow_f32(base: torch.Tensor, cube: float, n: torch.Tensor
+             ) -> torch.Tensor:
+    """``torch.tensor(b, dtype=torch.float32) ** k`` for the integer count
+    ``n`` on the device, bit for bit as ATen computes a float32 tensor to an
+    integral Python power: in double (``base`` is ``b`` rounded to float32,
+    held as a float64 device scalar) rounded to float32, except k = 3, which
+    it multiplies out in float32 (``cube``)."""
+    return torch.where(n == 3, cube, (base ** n.double()).float())
+
+
 class AdamState:
-    """The flat parameters and moments of one optimizer run."""
+    """The flat parameters and moments of one optimizer run.
+
+    The count of updates lives on the device (``count_dev``, optax's
+    ``count``): the bias corrections and the learning rate are float32
+    device scalars computed from it in the update, so that a captured
+    update (``train.loop.Trainer.scan_steps``) computes each replay's own.
+    ``count`` is its host mirror, advanced by ``step`` (or ``advance``,
+    after a replay of a captured ``update``)."""
 
     def __init__(self, opt: Adam, params: List[torch.nn.Parameter],
                  flat: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor):
@@ -75,6 +92,28 @@ class AdamState:
         self.mu = mu
         self.nu = nu
         self.count = 0
+        self.count_dev = torch.zeros((), dtype=torch.int64, device=flat.device)
+        self._pows = {}
+        for name in ('b1', 'b2', 'anneal_rate'):
+            b = torch.tensor(getattr(opt, name), dtype=torch.float32)
+            self._pows[name] = (
+                torch.tensor(float(b), dtype=torch.float64,
+                             device=flat.device), float(b * b * b))
+
+    def _pow(self, name: str, n: torch.Tensor) -> torch.Tensor:
+        return _pow_f32(*self._pows[name], n)
+
+    def schedule_t(self, count: torch.Tensor) -> torch.Tensor:
+        """``opt.schedule(count)`` for a device count: the same float32
+        scalar, on the device."""
+        epoch = torch.div(count, max(self.opt.steps_per_epoch, 1),
+                          rounding_mode='floor')
+        return self._pow('anneal_rate', epoch) * self.opt.lr
+
+    def bias_corrections(self, count: torch.Tensor):
+        """``1 - b1 ** count`` and ``1 - b2 ** count`` as float32 device
+        scalars."""
+        return 1 - self._pow('b1', count), 1 - self._pow('b2', count)
 
     def flat_grad(self) -> torch.Tensor:
         """The parameters' gradients as one vector (zeros where a
@@ -84,10 +123,11 @@ class AdamState:
             for p in self.params])
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        """One update from the parameters' ``.grad``; returns the gradients'
-        global norm (before clipping) as a device scalar, without a host
-        sync."""
+    def update(self) -> torch.Tensor:
+        """One update from the parameters' ``.grad`` and the device count,
+        which it advances, with no host sync and no host value; returns
+        the gradients' global norm (before clipping) as a device scalar.
+        The host's ``count`` is left to ``advance``."""
         o = self.opt
         g = self.flat_grad()
         # summed in float64: a float32 sum over ~2M entries on the CPU is
@@ -100,11 +140,20 @@ class AdamState:
                 gnorm, o.clip_norm))
         self.mu.mul_(o.b1).add_(g, alpha=1 - o.b1)
         self.nu.mul_(o.b2).addcmul_(g, g, value=1 - o.b2)
-        self.count += 1
-        bc1 = float(1 - torch.tensor(o.b1, dtype=torch.float32) ** self.count)
-        bc2 = float(1 - torch.tensor(o.b2, dtype=torch.float32) ** self.count)
+        self.count_dev += 1
+        bc1, bc2 = self.bias_corrections(self.count_dev)
         upd = (self.mu / bc1) / ((self.nu / bc2).sqrt_() + o.eps)
-        self.flat.add_(upd, alpha=-o.schedule(self.count - 1))
+        # optax's order: the update scaled by the learning rate, then added
+        self.flat.sub_(upd.mul_(self.schedule_t(self.count_dev - 1)))
+        return gnorm
+
+    def advance(self) -> None:
+        self.count += 1
+
+    def step(self) -> torch.Tensor:
+        """``update`` and ``advance``: one optimizer step."""
+        gnorm = self.update()
+        self.advance()
         return gnorm
 
 
@@ -167,14 +216,24 @@ class MultiAdamState:
         return next(iter(self.groups.values())).count
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def update(self) -> torch.Tensor:
         """One update of every group from the parameters' ``.grad``, each
-        clipped by its own gradients' global norm; returns the norm over
-        all groups (before clipping) and keeps each group's in
-        ``group_norms``, as device scalars."""
-        self.group_norms = {g: st.step() for g, st in self.groups.items()}
+        clipped by its own gradients' global norm and counted by its own
+        device count; returns the norm over all groups (before clipping)
+        and keeps each group's in ``group_norms``, as device scalars."""
+        self.group_norms = {g: st.update() for g, st in self.groups.items()}
         return torch.stack(list(self.group_norms.values())).square().sum() \
             .sqrt()
+
+    def advance(self) -> None:
+        for st in self.groups.values():
+            st.advance()
+
+    def step(self) -> torch.Tensor:
+        """``update`` and ``advance``: one optimizer step."""
+        gnorm = self.update()
+        self.advance()
+        return gnorm
 
 
 def make_multi_optimizer(group_fn: Callable[[str], str],
