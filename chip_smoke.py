@@ -141,6 +141,36 @@ script exits non-zero:
              breaker's flags held too; ``finetune vs train`` beside the
              prop step's), and fails unless every kernel of the step
              launched.
+10. hier  — the hier family's serve path: the trained ``hier-prop``
+             checkpoint (``runs/QUALITY_hier_hopv.json.ckpt``: LSTM,
+             hidden = embed = 250, latent 24, depthT = depthG = 20,
+             diterG 3) on the card and on the CPU, and the first 64
+             molecules in its vocab.  First ``nei_sum`` at each of its call
+             sites (the encoder's five readouts, the decode step's five
+             frontier sums) and ``gather_rows`` at the atom and tree levels,
+             on the inputs the path gives them
+             (``kernel_bench.hier_cases``), against the plain version and
+             the in-order sum, timed as in phase 4.  Then a second
+             ``GgpmServer`` answers ``/encode`` of the 64, ``/reconstruct``
+             of the 16 molecules of
+             ``ggpm_tpu_torch/goldens/decode_hier_hopv16.json`` (the JAX
+             package's answers, which tests/test_torch_hier.py recomputes)
+             and ``/sample`` of its request (8 at seed 0), through
+             ``HierMPNEncoder`` and the exact ``decode_hier``, each under
+             the profiler with the counts read just before and after.  The
+             latents must lie within 1e-4 of the CPU port's; the strings
+             meet phase 6's rule (at most 2 differ a request, each at an
+             fp32 near-tie, printed); each request's launches, by the
+             wrappers and by the profiler's device events alike, are 5
+             ``nei_sum`` and depthG + 2·depthT = 60 ``gather_rows`` an
+             encode and 5 ``nei_sum`` a decode step; and each call site's
+             launches, the wrappers' launches counted at the site whose
+             line made the call (``kernel_bench.hier_sites``), are its
+             share of them, with no launch outside a site.  The kernels
+             line's ``hier_sites`` carry these measured launches.  Last,
+             the hier encode
+             and exact-decode profiles of the 64
+             (``profile_serve.hier_profiles``).
 
 The line before the last is ``nvidia-smi``'s; the one before it a JSON
 object listing every kernel; the last line is
@@ -159,7 +189,7 @@ import urllib.request
 import numpy as np
 import torch
 
-from ggpm_tpu_torch import kernel_bench, profile_train
+from ggpm_tpu_torch import kernel_bench, profile_serve, profile_train
 from ggpm_tpu_torch.bridge import load_model
 from ggpm_tpu_torch.chem import canon_smiles
 from ggpm_tpu_torch.data.batching import to_model_batch
@@ -174,9 +204,10 @@ from ggpm_tpu_torch.models.decode import decode_best
 from ggpm_tpu_torch.ops import cuda_build, graph_ops, nei_sum
 from ggpm_tpu_torch.ops.nei_sum import KINDS, device_plan, launch
 from ggpm_tpu_torch.latent.control import LatentOptimizer
-from ggpm_tpu_torch.profile_serve import (OPTIMIZE_SETTINGS, optimize_targets,
-                                          profile_decode, profile_optimize,
-                                          profiled)
+from ggpm_tpu_torch.profile_serve import (HIER_CKPT, HIER_VOCAB,
+                                          OPTIMIZE_SETTINGS, kernel_of,
+                                          optimize_targets, profile_decode,
+                                          profile_optimize, profiled)
 from ggpm_tpu_torch.serve import GgpmServer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -188,6 +219,8 @@ TRAIN_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                             'train_hopv.json')
 OPT_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                           'optimize_hopv64.json')
+HIER_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
+                           'decode_hier_hopv16.json')
 FINETUNE_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                                'train_propopt_hopv.json')
 N_MOLS = 64
@@ -258,7 +291,13 @@ KERNELS = {
                     'decoder.py:440 propose_step_, replayed from a CUDA '
                     'graph)',
                     'ggpm_tpu_torch/models/decoder.py:174 (_run_scan, the '
-                    'teacher-forced frontier)']),
+                    'teacher-forced frontier)',
+                    'ggpm_tpu_torch/models/encoder.py (HierMPNEncoder: the '
+                    'readouts of its three levels, the cluster sum over '
+                    'cgraph and the root readout)',
+                    'ggpm_tpu_torch/models/hier_decoder.py '
+                    '(hdec_graph_update, hdec_topo, hdec_mess_update: the '
+                    'hier decode step\'s five frontier sums)']),
     'transpose_sum': dict(
         route='cuda', source='ggpm_tpu_torch/csrc/transpose_sum.cu',
         replaces='ggpm_tpu/ops/graph_ops.py:111 (_nei_sum_t_bwd) and :134 '
@@ -274,10 +313,15 @@ KERNELS = {
                  'XLA gather, no Pallas kernel',
         main_case='depth-gather', paths=('serve', 'decode', 'train'),
         call_sites=['ggpm_tpu_torch/models/rnn.py (MPNLSTMCell.forward, '
-                    'the depth loop)']),
+                    'the depth loop; in HierMPNEncoder at the atom, '
+                    'attachment and motif levels)']),
 }
 WRAPPERS = profile_train.KERNELS
 assert set(KERNELS) == set(WRAPPERS)
+# the hier family's call sites (phase 10), each with the JAX line it ports
+HIER_SITES = {f'hier-{site}': line for site, line in (
+    kernel_bench.HIER_ENCODE_SITES + kernel_bench.HIER_STEP_SITES +
+    kernel_bench.HIER_GATHER_SITES)}
 
 
 def phase(name, t0):
@@ -809,6 +853,158 @@ def optimize_phase(model, model_cpu, vocab, rows, answers, golden, batch,
     return summary
 
 
+def hier_requests(port, rows, golden):
+    """The hier family's requests, each under the profiler with the counts
+    read just before and just after it: ``/encode`` of ``rows`` (64),
+    ``/reconstruct`` of the golden's 16 and ``/sample`` of its request.
+    Returns per request the answer, seconds, the wrappers' launches, the
+    device events' launches of each kernel, each call site's launches
+    (``kernel_bench.hier_sites``; None: launches no site made) and
+    ``decode.HIER_STATS``."""
+    out = {}
+    for name, path, payload in (
+            ('encode', '/encode', {'smiles': [r[0] for r in rows]}),
+            ('reconstruct', '/reconstruct', {'smiles': golden['inputs']}),
+            ('sample', '/sample', golden['sample_request'])):
+        decode.HIER_STATS.clear()
+        before = read_counts()
+        answer = []
+
+        def run():
+            t0 = time.perf_counter()
+            answer.append(request(port, path, payload))
+            torch.cuda.synchronize()
+            answer.append(time.perf_counter() - t0)
+        with kernel_bench.hier_sites() as sites:
+            _, events = profiled(run)
+        device = {k: 0 for k in WRAPPERS}
+        for e in events:
+            if kernel_of(e.key):
+                device[kernel_of(e.key)] += e.count
+        out[name] = dict(answer=answer[0], seconds=answer[1],
+                         launches={k: v - before[k]
+                                   for k, v in read_counts().items()},
+                         device_launches=device,
+                         site_launches={site: c['launches']
+                                        for site, c in sites.items()},
+                         stats=dict(decode.HIER_STATS))
+    return out
+
+
+def hier_phase(floor):
+    """Phase 10: the hier family's serve path on the card (docstring).
+    Returns the phase's summary, the counts of its requests, the kernel
+    rows at its call sites and each site's launches in the requests."""
+    with open(HIER_GOLDEN) as f:
+        golden = json.load(f)
+    hmodel, hvocab = load_model(HIER_CKPT, HIER_VOCAB, device='cuda')
+    hmodel_cpu, _ = load_model(HIER_CKPT, HIER_VOCAB, device='cpu')
+    rows = prune_to_vocab(read_csv_data(DATA), hvocab,
+                          verbose=False)[:N_MOLS]
+    if [r[0] for r in rows[:len(golden['inputs'])]] != golden['inputs']:
+        raise AssertionError('the hier golden is not for these molecules')
+    site_rows = {}
+    for row in checked(kernel_bench.measure(
+            kernel_bench.hier_cases(hmodel, hvocab, rows), floor)):
+        site_rows.setdefault(row['kernel'], {})[row['case']] = row
+    server = GgpmServer(hmodel, hvocab, max_decode_step=MAX_DECODE_STEP,
+                        device='cuda')
+    port = server.start(port=0).server_address[1]
+    try:
+        reset_counts()
+        answers = hier_requests(port, rows, golden)
+        counts = read_counts()
+    finally:
+        server.stop()
+
+    # the answers: latents against the CPU port's, strings against the
+    # golden by the decode rule
+    batch = to_model_batch(tensorize(rows, hvocab, common_atom_vocab),
+                           hvocab.mask, pad=False)
+    z = np.asarray(answers['encode']['answer']['latents'], np.float32)
+    z_cpu = encode(hmodel_cpu, batch)[0].numpy()
+    lat_err = float(np.abs(z - z_cpu).max())
+    if z.shape != (N_MOLS, hmodel.cfg.latent_size) or \
+            not lat_err <= LATENT_ATOL:
+        raise AssertionError(f'hier /encode: latents {z.shape}, max abs err '
+                             f'{lat_err} against the CPU port')
+    n16 = len(golden['inputs'])
+    b16 = to_model_batch(tensorize(rows[:n16], hvocab, common_atom_vocab),
+                         hvocab.mask, pad=False)
+    z_prior = np.random.default_rng(golden['sample_request']['seed']) \
+        .standard_normal((golden['sample_request']['n'], z.shape[1])) \
+        .astype(np.float32)
+    differ = {}
+    for name, z_c, z_p in (
+            ('reconstruct', lambda: encode(hmodel, b16)[0],
+             lambda: encode(hmodel_cpu, b16)[0]),
+            ('sample', lambda: z_prior, lambda: z_prior)):
+        differ[name] = check_decode(
+            f'hier {name}', answers[name]['answer']['smiles'], golden[name],
+            logs_of(hmodel, hvocab, z_c), logs_of(hmodel_cpu, hvocab, z_p))
+        if len(differ[name]) > MAX_DIFFERING:
+            raise AssertionError(f'hier /{name}: {len(differ[name])} strings '
+                                 f'differ from the JAX reference')
+
+    # the launches: an encode's 5 readouts and its depth loops' rounds, a
+    # decode step's 5 frontier sums; by the wrappers, the device events and
+    # each call site (the wrappers' launches counted where the site calls)
+    cfg = hmodel.cfg
+    encodes = {'encode': 1, 'reconstruct': 1, 'sample': 0}
+    launches = {}
+    sites = {f'hier-{site}': 0 for site in kernel_bench.HIER_SITE_NAMES}
+    for name, a in answers.items():
+        steps = a['stats'].get('steps', 0)
+        n = encodes[name]
+        expected_sites = {
+            **{site: n for site, _ in kernel_bench.HIER_ENCODE_SITES},
+            **{site: steps for site, _ in kernel_bench.HIER_STEP_SITES},
+            'atom-gather': cfg.depthG * n, 'tree-gather': 2 * cfg.depthT * n,
+            None: 0}
+        expected = {'nei_sum': 5 * n + 5 * steps,
+                    'gather_rows': (cfg.depthG + 2 * cfg.depthT) * n,
+                    'transpose_sum': 0}
+        by_site = a['site_launches']
+        launches[name] = dict(wrappers=a['launches'],
+                              device=a['device_launches'],
+                              expected=expected, steps=steps,
+                              sites={str(k): v for k, v in by_site.items()},
+                              assm_calls=a['stats'].get('assm_calls', 0),
+                              seconds=a['seconds'])
+        print(f'hier launches {name} ' + json.dumps(launches[name]),
+              flush=True)
+        if not a['launches'] == a['device_launches'] == expected:
+            raise AssertionError(f'hier /{name}: launches {a["launches"]}, '
+                                 f'device events {a["device_launches"]}, '
+                                 f'expected {expected}')
+        if by_site != expected_sites:
+            raise AssertionError(f'hier /{name}: launches by call site '
+                                 f'{by_site}, expected {expected_sites}')
+        for site in kernel_bench.HIER_SITE_NAMES:
+            sites[f'hier-{site}'] += by_site[site]
+    for kernel in ('nei_sum', 'gather_rows'):
+        at_sites = sum(v for k, v in sites.items()
+                       if kernel_bench.HIER_SITE_CALLS[k[5:]][0] == kernel)
+        if at_sites != counts[kernel]:
+            raise AssertionError(f'hier: {kernel} launches at the sites '
+                                 f'{at_sites}, by the wrapper '
+                                 f'{counts[kernel]}')
+    prof = profile_serve.hier_profiles(hmodel, hvocab, rows)
+    print('hier encode ' + json.dumps(prof['encode']), flush=True)
+    print(f'hier decode B{N_MOLS} ' + json.dumps(prof['decode']), flush=True)
+    canon = [canon_smiles(s) for s in golden['inputs']]
+    rec = answers['reconstruct']['answer']['smiles']
+    summary = dict(
+        latent_err_vs_cpu=lat_err, differ_from_jax=differ,
+        validity={n: sum(s is not None for s in answers[n]['answer'][
+            'smiles']) / len(answers[n]['answer']['smiles'])
+            for n in ('reconstruct', 'sample')},
+        exact_reconstruction=sum(a == b for a, b in zip(rec, canon)) /
+        len(rec), launches=launches, site_launches=sites)
+    print('hier ' + json.dumps(summary), flush=True)
+    return summary, counts, site_rows, sites
+
+
 def main() -> int:
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -905,6 +1101,10 @@ def main() -> int:
     phase('optimize', t0)
 
     t0 = time.perf_counter()
+    hier_summary, hcounts, hier_rows, hier_sites = hier_phase(floor_ms())
+    phase('hier', t0)
+
+    t0 = time.perf_counter()
     _, train_batches = profile_train.hopv_batches(vocab=vocab)
     if len(train_batches) != profile_train.STEPS_PER_EPOCH:
         raise AssertionError(f'{len(train_batches)} HOPV batches, need '
@@ -917,7 +1117,8 @@ def main() -> int:
     ft_prof, fcounts, ft_check = finetune_phase(vocab, train_batches,
                                                 train_turns)
     counts = {name: counts[name] + dcounts[name] + ocounts[name] +
-              tcounts[name] + fcounts[name] for name in counts}
+              hcounts[name] + tcounts[name] + fcounts[name]
+              for name in counts}
     phase('finetune', t0)
 
     keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
@@ -944,8 +1145,9 @@ def main() -> int:
                 'train': train_check['launches_per_replayed_step'][name],
                 'finetune': ft_check['launches_per_replayed_step'][name]},
             **{key: r[key] for key in keys},
-            max_abs_err_all_cases=max(x['max_abs_err']
-                                      for x in rows_of.values()),
+            max_abs_err_all_cases=max(
+                x['max_abs_err'] for x in list(rows_of.values()) +
+                list(hier_rows.get(name, {}).values())),
             call_sites=k['call_sites'], case=k['main_case'],
             **({'turbo_decode': in_graph, 'per_optimize_request': {
                 p: o['nei_sum_launches'] for p, o in opt_summary.items()}}
@@ -953,7 +1155,11 @@ def main() -> int:
             shape=r.get('shape') or dict(h=r['h'], graph=r['graph']),
             cases={case: {key: row[key] for key in keys}
                    for case, row in rows_of.items()
-                   if case != k['main_case']}))
+                   if case != k['main_case']},
+            hier_sites={case: dict(
+                {key: row[key] for key in keys}, shape=row['shape'],
+                launches=hier_sites[case], replaces=HIER_SITES[case])
+                for case, row in hier_rows.get(name, {}).items()}))
     print(f'total {time.perf_counter() - t_all:.1f}s', flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)

@@ -11,7 +11,12 @@ model: a ``Dense`` kernel ``[in, out]`` becomes ``Linear.weight``
 ``vae/encoder/tree_encoder/rnn/W_f/kernel`` becomes the parameter
 ``vae.encoder.tree_encoder.rnn.W_f.weight``; any other leaf (the
 ``loss_weigh/*_log_var`` of a prop-opt model with loss scaling) is the
-parameter of its own name.  ``to_flax_tree`` is the inverse.
+parameter of its own name.  ``to_flax_tree`` is the inverse.  The hier
+family's trees have the same layout (``params/E_c``,
+``params/encoder/graph_encoder/...``, ``params/decoder/...``; a
+``hier-prop-opt`` tree nests them under ``hier/`` beside
+``property_optim/``), and ``load_model`` tells the four families apart by
+their trees.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import numpy as np
 import torch
 
 from .graph.vocab import PairVocab, load_vocab_file
-from .models.vae import ModelConfig, PropertyVAE, PropOptVAE
+from .models.vae import (HierPropertyVAE, HierPropOptVAE, ModelConfig,
+                         PropertyVAE, PropOptVAE)
 
 # flax leaf -> port attribute, where they differ; any other leaf (a bias,
 # ``LossWeigh``'s log-variances) keeps its name
@@ -311,17 +317,41 @@ def load_prop_model(ckpt_path: str, vocab_path: str, device: str = 'cuda',
     return model.to(device), vocab
 
 
+# what ``scripts/quality_run.py`` trains the hier family with, where it
+# differs from ``ModelConfig``'s defaults (the checkpoint does not say)
+HIER_TRAINED = {'diterG': 3}
+
+
+def model_class(tree: Mapping):
+    """The model class of a checkpoint's tree: ``PropOptVAE`` (``vae/``
+    beside ``property_optim/``), ``HierPropOptVAE`` (``hier/`` beside it),
+    ``HierPropertyVAE`` (an encoder with an atom level) or
+    ``PropertyVAE``."""
+    params = tree.get('params', tree)
+    if 'vae' in params:
+        return PropOptVAE
+    if 'hier' in params:
+        return HierPropOptVAE
+    if 'graph_encoder' in params.get('encoder', {}):
+        return HierPropertyVAE
+    return PropertyVAE
+
+
 def load_model(ckpt_path: str, vocab_path: str, device: str = 'cuda'
-               ) -> Tuple[PropOptVAE, PairVocab]:
-    """The trained prop-opt model of a checkpoint and its vocab file, in
-    eval mode on ``device``.  The configuration is ``ModelConfig``'s
-    defaults with the vocab's sizes, and loss scaling where the checkpoint
-    holds ``loss_weigh``."""
+               ) -> Tuple[torch.nn.Module, PairVocab]:
+    """The trained model of a checkpoint (the family its tree holds,
+    ``model_class``) and its vocab file, in eval mode on ``device``.  The
+    configuration is ``ModelConfig``'s defaults with the vocab's sizes,
+    loss scaling where the checkpoint holds ``loss_weigh``, and for the
+    hier family ``HIER_TRAINED``."""
     vocab = load_vocab_file(vocab_path)
     hvocab, ivocab = vocab.size()
     tree = read_checkpoint(ckpt_path)
-    model = PropOptVAE(ModelConfig(
+    cls = model_class(tree)
+    hier = cls in (HierPropertyVAE, HierPropOptVAE)
+    model = cls(ModelConfig(
         hvocab_size=hvocab, ivocab_size=ivocab,
-        loss_scaling='loss_weigh' in tree.get('params', tree)))
+        loss_scaling='loss_weigh' in tree.get('params', tree),
+        **(HIER_TRAINED if hier else {})))
     load_flax_params(model, tree)
     return model.eval().to(device), vocab

@@ -1,5 +1,7 @@
 """Shared CLI plumbing: config → vocab → model (counterpart of
-``ggpm_tpu/cli/common.py`` for the ``prop`` and ``prop-opt`` models)."""
+``ggpm_tpu/cli/common.py``).  The port trains the ``prop`` and ``prop-opt``
+models and loads the hier family (``hier-prop``, ``hier-prop-opt``) for
+inference."""
 
 from __future__ import annotations
 
@@ -14,32 +16,42 @@ from ..bridge import load_flax_params, prop_tree, read_checkpoint, to_flax_tree
 from ..configs import Configs
 from ..data.dataset import read_csv_data
 from ..graph.vocab import PairVocab, load_vocab_file
-from ..models.vae import ModelConfig, PropertyVAE, PropOptVAE, init_params
+from ..models.vae import (HierPropertyVAE, HierPropOptVAE, ModelConfig,
+                          PropertyVAE, PropOptVAE, init_params)
 from ..train import checkpoint as ckpt
 
 __all__ = ['load_checkpoint', 'maybe_load_pretrained', 'read_csv_data',
            'setup_model', 'write_csv']
 
 # model types of the JAX registry (ggpm_tpu/models/vae.py:OPVNet) that the
-# port does not train yet, and the ROADMAP item that brings each
-NOT_PORTED = {'prop-opt-sched': 'A4', 'hier-prop': 'A5',
-              'hier-prop-opt': 'A5'}
-MODELS = {'prop': PropertyVAE, 'prop-opt': PropOptVAE}
+# port does not have, or does not train yet, and the ROADMAP item that
+# brings each
+NOT_PORTED = {'prop-opt-sched': 'A4'}
+NOT_TRAINED = {'hier-prop': 'A5', 'hier-prop-opt': 'A5'}
+MODELS = {'prop': PropertyVAE, 'prop-opt': PropOptVAE,
+          'hier-prop': HierPropertyVAE, 'hier-prop-opt': HierPropOptVAE}
 
 
-def setup_model(configs: Configs, model_type: str, seed: int = 1
-                ) -> Tuple[Union[PropertyVAE, PropOptVAE], PairVocab,
-                           ModelConfig]:
+def setup_model(configs: Configs, model_type: str, seed: int = 1,
+                training: bool = True
+                ) -> Tuple[Union[PropertyVAE, PropOptVAE, HierPropertyVAE,
+                                 HierPropOptVAE], PairVocab, ModelConfig]:
     """Load the vocab and build the model, initialised as flax initialises
     the JAX package's from a generator seeded with ``seed``; returns
-    (model, vocab, config) on the CPU."""
-    if model_type not in MODELS:
-        item = NOT_PORTED.get(model_type)
-        if item is None:
-            raise ValueError(f'Model {model_type} does not exist')
+    (model, vocab, config) on the CPU.  ``training``: the model is to be
+    trained, which the hier family is not yet.  The flag and
+    ``NOT_TRAINED`` are temporary: they go, with the hier models'
+    ``_no_hier_training``, when hier training (ROADMAP A5) lands."""
+    item = NOT_PORTED.get(model_type) or (training and
+                                          NOT_TRAINED.get(model_type))
+    if item:
         raise NotImplementedError(
             f'model type {model_type!r}: the port trains the prop and '
-            f'prop-opt models so far; {model_type} is ROADMAP {item}')
+            f'prop-opt models so far and serves the hier family; '
+            f'{"training " if model_type in NOT_TRAINED else ""}'
+            f'{model_type} is ROADMAP {item}')
+    if model_type not in MODELS:
+        raise ValueError(f'Model {model_type} does not exist')
     vocab = load_vocab_file(configs.vocab_)
     mcfg = ModelConfig.from_configs(configs, vocab)
     model = MODELS[model_type](mcfg)

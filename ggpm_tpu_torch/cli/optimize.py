@@ -34,7 +34,8 @@ from ..data.dataset import MoleculeDataset
 from ..graph.vocab import common_atom_vocab
 from ..latent.control import POLICIES, LatentOptimizer
 from ..models.api import encode
-from ..models.decode import decode_best, decode_motif
+from ..models.decode import (decode_best, decode_hier, decode_motif,
+                             is_hier)
 from .common import load_checkpoint, read_csv_data, setup_model, write_csv
 
 
@@ -73,7 +74,7 @@ def main(argv=None):
             'patience_threshold', 0.1),
     )
 
-    model, vocab, _ = setup_model(configs, args.model_type)
+    model, vocab, _ = setup_model(configs, args.model_type, training=False)
     load_checkpoint(model, configs)
     model = model.eval().to(args.device)
     data = read_csv_data(configs.get('test_data') or configs.get('data'))
@@ -83,7 +84,7 @@ def main(argv=None):
         def decode_fn(*a, **kw):
             return decode_best(*a, log_steps=False, **kw)
     else:
-        decode_fn = decode_motif
+        decode_fn = decode_hier if is_hier(model) else decode_motif
 
     recon_rows, prop_rows, logs = [], [], []
     for i in range(len(dataset)):

@@ -3,14 +3,15 @@
 
 Usage:
     python -m ggpm_tpu_torch.cli.reconstruct --path-to-config configs.json \\
-        [--model-type prop-opt] [--fast-decode] [--device cpu]
+        [--model-type prop-opt|hier-prop|...] [--fast-decode] [--device cpu]
 
 Encodes each test molecule (the config's ``test_data``, else ``data``)
 without latent noise, decodes greedily, and writes the config's ``output``
 CSV (default ``reconstructions.csv``: original and reconstructed SMILES,
 and the predicted HOMO/LUMO when the model has property heads) and a
 pickle of the per-step decode logs beside it.  ``--fast-decode`` takes the
-turbo decode (the same SMILES, no per-step logs).  Runs on the card
+turbo decode (the same SMILES, no per-step logs; the hier family decodes
+through its exact path either way).  Runs on the card
 (``cuda``) unless ``--device`` says otherwise.
 """
 
@@ -27,7 +28,8 @@ from ..data.batching import to_model_batch
 from ..data.dataset import MoleculeDataset
 from ..graph.vocab import common_atom_vocab
 from ..models.api import encode
-from ..models.decode import decode_best, decode_motif
+from ..models.decode import (decode_best, decode_hier, decode_motif,
+                             is_hier)
 from .common import load_checkpoint, read_csv_data, setup_model, write_csv
 
 
@@ -46,7 +48,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     configs = Configs(path=args.path_to_config)
-    model, vocab, _ = setup_model(configs, args.model_type)
+    model, vocab, _ = setup_model(configs, args.model_type, training=False)
     load_checkpoint(model, configs)
     model = model.eval().to(args.device)
     data = read_csv_data(configs.get('test_data') or configs.get('data'))
@@ -56,7 +58,7 @@ def main(argv=None):
         def decode_fn(*a, **kw):
             return decode_best(*a, log_steps=False, **kw)
     else:
-        decode_fn = decode_motif
+        decode_fn = decode_hier if is_hier(model) else decode_motif
 
     rows, logs = [], []
     for i in range(len(dataset)):

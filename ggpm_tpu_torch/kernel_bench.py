@@ -6,6 +6,7 @@ loop's, are measured by ``chip_smoke.py``).
 
     python -m ggpm_tpu_torch.kernel_bench [--out PATH]
     python -m ggpm_tpu_torch.kernel_bench --transpose [--sweep] [--out PATH]
+    python -m ggpm_tpu_torch.kernel_bench --hier [--out PATH]
 
 ``nei_sum`` cases: the two readouts of a 64-molecule HOPV request, that
 tree tiled 64 times into one block-diagonal batch (a 4,096-molecule
@@ -19,6 +20,13 @@ PyTorch call that computes the same function (``embedding_bag``), the
 bound (distinct rows of ``h`` read once, ``graph`` read once, ``out``
 written once, over the card's HBM rate) and the launch floor (a
 one-element launch in the same harness).
+
+``--hier`` times ``nei_sum`` and ``gather_rows`` at the hier family's call
+sites (``hier_cases``), on the inputs the trained ``hier-prop``
+checkpoint's serve path gives them: the encode of the first 64 in-vocab
+HOPV molecules (the five readouts, and the depth loop's gather at the atom
+level and at the tree level) and one step of the exact decode of the
+first 16 (its five frontier sums), each line as ``measure`` gives it.
 
 ``transpose_sum`` cases (``transpose_cases``): the four of the first HOPV
 training batch (the depth loop's gather backward and three readout
@@ -39,9 +47,12 @@ Needs a CUDA device; it has no CPU mode.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import inspect
 import json
 import os
 import subprocess
+import sys
 from typing import Callable, Iterator, List, Sequence, Tuple
 
 import numpy as np
@@ -315,15 +326,191 @@ def gather_case(name: str, tree: dict, gen: torch.Generator,
     width 3 ``hidden`` by ``bgraph``, as a case of ``measure``; the plain
     copy is its in-order reference.  Values come from ``gen``."""
     src = random_table(gen, tree['fmess'].shape[0], 3 * hidden)
-    bg = torch.as_tensor(tree['bgraph'], device=gen.device)
-    return dict(
-        kernel='gather_rows', case=name, shape=dict(
-            src=list(src.shape), graph=list(bg.shape)),
-        call=lambda: gather_rows(src, bg),
-        plain=lambda: graph_ops.gather_nd(src, bg), exact=None,
-        library=lambda: library_gather(src, bg),
-        bytes=4 * (torch.unique(bg).numel() * src.shape[1] + bg.numel() +
-                   bg.numel() * src.shape[1]), ops=0)
+    return gather_rows_case(name, src, torch.as_tensor(tree['bgraph'],
+                                                       device=gen.device))
+
+
+def nei_sum_case(name: str, h: torch.Tensor, g: torch.Tensor) -> dict:
+    """``nei_sum`` of (h, g) as a case of ``measure``: the plain version
+    and the in-order sum as references, ``embedding_bag`` as the library
+    call."""
+    return dict(kernel='nei_sum', case=name,
+                shape=dict(h=list(h.shape), graph=list(g.shape)),
+                call=lambda: nei_sum(h, g),
+                plain=lambda: graph_ops.nei_sum(h, g),
+                exact=lambda: in_order_nei_sum(h, g),
+                library=lambda: library_nei_sum(h, g),
+                bytes=nei_sum_bytes(h, g), ops=nei_sum_ops(h, g))
+
+
+def gather_rows_case(name: str, src: torch.Tensor, g: torch.Tensor) -> dict:
+    """``gather_rows`` of (src, g) as a case of ``measure``."""
+    return dict(kernel='gather_rows', case=name,
+                shape=dict(src=list(src.shape), graph=list(g.shape)),
+                call=lambda: gather_rows(src, g),
+                plain=lambda: graph_ops.gather_nd(src, g), exact=None,
+                library=lambda: library_gather(src, g),
+                bytes=4 * (torch.unique(g).numel() * src.shape[1] +
+                           g.numel() + g.numel() * src.shape[1]), ops=0)
+
+
+# the hier family's call sites, in the order the port calls them (an
+# encode: HierMPNEncoder.forward; a decode step: HierDecoder.
+# hdec_step_fused), each with the line of the JAX package it ports
+HIER_ENCODE_SITES = (
+    ('atom-readout', 'ggpm_tpu/models/encoder.py:48 (graph level)'),
+    ('cluster', 'ggpm_tpu/models/encoder.py:194'),
+    ('inter-readout', 'ggpm_tpu/models/encoder.py:48 (inter level)'),
+    ('tree-readout', 'ggpm_tpu/models/encoder.py:48 (tree level)'),
+    ('root', 'ggpm_tpu/models/encoder.py:216'))
+HIER_STEP_SITES = (
+    ('atom-frontier', 'ggpm_tpu/models/hier_decoder.py:446'),
+    ('topo-cluster', 'ggpm_tpu/models/hier_decoder.py:457'),
+    ('topo-inter', 'ggpm_tpu/models/hier_decoder.py:462'),
+    ('topo-tree', 'ggpm_tpu/models/hier_decoder.py:469'),
+    ('mess-cluster', 'ggpm_tpu/models/hier_decoder.py:479'))
+# the depth loop's gather: depthG rounds at the atom level, then depthT
+# at the attachment level and depthT at the motif level (both over the
+# tree's bgraph, so one case: the motif level's last round)
+HIER_GATHER_SITES = (('atom-gather', 'ggpm_tpu/ops/graph_ops.py:122 '
+                      '(graph level)'),
+                     ('tree-gather', 'ggpm_tpu/ops/graph_ops.py:122 '
+                      '(inter and tree levels)'))
+HIER_STEP = 20      # the decode step whose frontier sums are recorded
+# where the port makes each hier site's call: the kernel, the function
+# (module, qualified name) whose frame is on the call's stack, and text
+# found on the calling line of that function and on no other
+HIER_SITE_CALLS = {
+    'atom-readout': ('nei_sum', 'encoder', 'HierMPNEncoder.forward',
+                     ('self.graph_encoder(',)),
+    'cluster': ('nei_sum', 'encoder', 'HierMPNEncoder.forward',
+                ("tree['cgraph']",)),
+    'inter-readout': ('nei_sum', 'encoder', 'HierMPNEncoder.forward',
+                      ('self.inter_encoder(',)),
+    'tree-readout': ('nei_sum', 'encoder', 'HierMPNEncoder.forward',
+                     ('self.tree_encoder(',)),
+    'root': ('nei_sum', 'encoder', 'HierMPNEncoder.forward',
+             ('nei = readout(hmess',)),
+    'atom-frontier': ('nei_sum', 'hier_decoder',
+                      'HierDecoder.hdec_graph_update', ('nei = nei_sum(',)),
+    'topo-cluster': ('nei_sum', 'hier_decoder', 'HierDecoder.hdec_topo',
+                     ('nei_sum(hatom, v_cgraph)',)),
+    'topo-inter': ('nei_sum', 'hier_decoder', 'HierDecoder.hdec_topo',
+                   ('nei_sum(self.inter_rnn',)),
+    'topo-tree': ('nei_sum', 'hier_decoder', 'HierDecoder.hdec_topo',
+                  ('nei_sum(self.tree_rnn',)),
+    'mess-cluster': ('nei_sum', 'hier_decoder',
+                     'HierDecoder.hdec_mess_update',
+                     ('nei_sum(hatom, src_cgraph)',)),
+    'atom-gather': ('gather_rows', 'encoder', 'HierMPNEncoder.forward',
+                    ('self.graph_encoder(',)),
+    'tree-gather': ('gather_rows', 'encoder', 'HierMPNEncoder.forward',
+                    ('self.inter_encoder(', 'self.tree_encoder(')),
+}
+HIER_SITE_NAMES = tuple(site for site, _ in HIER_ENCODE_SITES +
+                        HIER_STEP_SITES + HIER_GATHER_SITES)
+assert set(HIER_SITE_NAMES) == set(HIER_SITE_CALLS)
+
+
+def hier_site_lines() -> dict:
+    """``{(kernel, code object, line): site}`` of ``HIER_SITE_CALLS``,
+    read from the port's source."""
+    from .models import encoder, hier_decoder
+    modules = {'encoder': encoder, 'hier_decoder': hier_decoder}
+    lines = {}
+    for site, (kernel, module, qualname, texts) in HIER_SITE_CALLS.items():
+        fn = modules[module]
+        for part in qualname.split('.'):
+            fn = getattr(fn, part)
+        src, start = inspect.getsourcelines(fn)
+        for text in texts:
+            at = [start + i for i, line in enumerate(src) if text in line]
+            if len(at) != 1:
+                raise AssertionError(f'{site}: {text!r} is on {len(at)} '
+                                     f'lines of {qualname}')
+            lines[(kernel, fn.__code__, at[0])] = site
+    return lines
+
+
+@contextlib.contextmanager
+def hier_sites(keep: bool = False):
+    """Count each hier call site's calls and kernel launches while the
+    block runs.  ``encoder.nei_sum``, ``hier_decoder.nei_sum`` and
+    ``rnn.gather_rows`` (the wrappers as those modules call them) are
+    replaced by functions that call the wrapper, take the change of its
+    ``launches`` and add it to the site whose line (``HIER_SITE_CALLS``)
+    is on the call's stack: the innermost frame of a site's function, at
+    the line it is running.  Yields ``{site: {'calls', 'launches'}}``
+    with the calls no site made under None; with ``keep``, each site's
+    entry also holds copies of the arguments of its last call
+    (``'args'``)."""
+    from .models import encoder, hier_decoder, rnn
+    lines = hier_site_lines()
+    codes = {code for _, code, _ in lines}
+    counts = {site: dict(calls=0, launches=0)
+              for site in HIER_SITE_NAMES + (None,)}
+    patched = [(encoder, 'nei_sum'), (hier_decoder, 'nei_sum'),
+               (rnn, 'gather_rows')]
+    originals = [getattr(m, name) for m, name in patched]
+
+    def counted(fn, kernel):
+        def call(*args):
+            before = fn.launches
+            out = fn(*args)
+            frame = sys._getframe(1)
+            while frame is not None and frame.f_code not in codes:
+                frame = frame.f_back
+            site = None if frame is None else \
+                lines.get((kernel, frame.f_code, frame.f_lineno))
+            entry = counts[site]
+            entry['calls'] += 1
+            entry['launches'] += fn.launches - before
+            if keep and site is not None:
+                entry['args'] = tuple(a.clone() for a in args)
+            return out
+        return call
+    for (m, name), fn in zip(patched, originals):
+        setattr(m, name, counted(fn, name))
+    try:
+        yield counts
+    finally:
+        for (m, name), fn in zip(patched, originals):
+            setattr(m, name, fn)
+
+
+def hier_cases(model, vocab, rows: Sequence[list], decode_rows: int = 16,
+               step: int = HIER_STEP) -> List[dict]:
+    """The hier family's kernel cases on the inputs its serve path gives
+    them (``measure`` cases, named by ``HIER_*_SITES``): the last call at
+    each site (``hier_sites``) in one encode of ``rows`` by ``model`` (a
+    hier model on the card), and in the exact decode of the first
+    ``decode_rows`` of their latents cut at step ``step``."""
+    from .models import decode
+    from .models.api import encode
+    batch = to_model_batch(tensorize(rows, vocab, common_atom_vocab),
+                           vocab.mask, pad=False)
+    with hier_sites(keep=True) as enc:
+        z = encode(model, batch)[0]
+    with hier_sites(keep=True) as dec:
+        decode.decode_hier(model, vocab, common_atom_vocab,
+                           z[:decode_rows], max_decode_step=step)
+    calls = {site: enc[site]['calls'] + dec[site]['calls']
+             for site in HIER_SITE_NAMES + (None,)}
+    cfg = model.cfg
+    expected = {**{site: 1 for site, _ in HIER_ENCODE_SITES},
+                **{site: step for site, _ in HIER_STEP_SITES},
+                'atom-gather': cfg.depthG, 'tree-gather': 2 * cfg.depthT,
+                None: 0}
+    if calls != expected:
+        raise AssertionError(f'hier_cases: calls {calls}, expected '
+                             f'{expected}')
+    cases = [nei_sum_case(f'hier-{site}', *enc[site]['args'])
+             for site, _ in HIER_ENCODE_SITES]
+    cases += [nei_sum_case(f'hier-{site}', *dec[site]['args'])
+              for site, _ in HIER_STEP_SITES]
+    cases += [gather_rows_case(f'hier-{site}', *enc[site]['args'])
+              for site, _ in HIER_GATHER_SITES]
+    return cases
 
 
 def train_cases(batch: dict, gen: torch.Generator, hidden: int = 250
@@ -501,13 +688,26 @@ def main(argv=None) -> List[dict]:
                     help='time transpose_sum at its cases instead')
     ap.add_argument('--sweep', action='store_true',
                     help='with --transpose, also time each forced plan')
+    ap.add_argument('--hier', action='store_true',
+                    help='time nei_sum and gather_rows at the hier '
+                         'family\'s call sites instead')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('kernel_bench needs a CUDA device')
     smi = nvidia_smi()
     print(smi, flush=True)
     rows = []
-    if args.transpose:
+    if args.hier:
+        from .bridge import load_model
+        from .profile_serve import HIER_CKPT, HIER_VOCAB
+        model, vocab = load_model(HIER_CKPT, HIER_VOCAB, device='cuda')
+        hrows = prune_to_vocab(read_csv_data(DATA), vocab,
+                               verbose=False)[:N_MOLS]
+        for row in measure(hier_cases(model, vocab, hrows), floor_ms()):
+            row['device'] = smi
+            print(f'{row["kernel"]} ' + json.dumps(row), flush=True)
+            rows.append(row)
+    elif args.transpose:
         floor = floor_ms()
         cases = transpose_cases('cuda')
         for case, row in zip(cases, measure(cases, floor)):

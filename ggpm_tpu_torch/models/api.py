@@ -10,37 +10,49 @@ import torch
 
 from ..data.batching import to_model_batch
 from ..graph.vocab import PairVocab, common_atom_vocab
-from .decode import decode_best, sample_prior
+from .decode import decode_best, is_hier, sample_prior
 
 _TREE_KEYS = ('fnode', 'fmess', 'agraph', 'bgraph', 'scope')
 
 
-def _check_tree(tree: Dict[str, np.ndarray]) -> None:
+def _check_tree(tree: Dict[str, np.ndarray], n_atoms: int = 0) -> None:
     """Index tables must point inside the tables they index: the gathers
-    on the card do not check their indices."""
+    on the card do not check their indices.  ``n_atoms``: the atom count
+    that a tree's ``cgraph`` indexes."""
     n_nodes, n_mess = len(tree['fnode']), len(tree['fmess'])
-    bounds = ((tree['agraph'], n_mess), (tree['bgraph'], n_mess),
-              (tree['fmess'][:, :2], n_nodes), (tree['scope'][:, 0], n_nodes))
+    bounds = [(tree['agraph'], n_mess), (tree['bgraph'], n_mess),
+              (tree['fmess'][:, :2], n_nodes), (tree['scope'][:, 0], n_nodes)]
+    if n_atoms:
+        bounds.append((tree['cgraph'], n_atoms))
     for table, n in bounds:
         if table.size and (table.min() < 0 or table.max() >= n):
             raise ValueError(f'tree index table out of range [0, {n})')
 
 
-def tree_to_device(tree: Dict[str, np.ndarray],
-                   device: torch.device) -> Dict[str, torch.Tensor]:
-    """The tree level of a ``to_model_batch`` dict as tensors on
-    ``device``."""
-    _check_tree(tree)
+def tree_to_device(tree: Dict[str, np.ndarray], device: torch.device,
+                   keys=_TREE_KEYS, n_atoms: int = 0
+                   ) -> Dict[str, torch.Tensor]:
+    """The ``keys`` of a level of a ``to_model_batch`` dict (the tree
+    level's by default) as tensors on ``device``."""
+    _check_tree(tree, n_atoms)
     return {k: torch.as_tensor(np.ascontiguousarray(tree[k]), device=device)
-            for k in _TREE_KEYS}
+            for k in keys}
 
 
 @torch.no_grad()
 def encode(model, batch: dict, eps: Optional[torch.Tensor] = None):
     """Latent code and KL of a model batch, on the model's device; no noise
-    unless ``eps`` is given (reference eval-time convention)."""
+    unless ``eps`` is given (reference eval-time convention).  The hier
+    family also reads the atom level, ``batch['graph']``, and the tree's
+    cluster table ``cgraph`` (JAX ``api.encode``)."""
     device = next(model.parameters()).device
-    return model.encode_latent(tree_to_device(batch['tree'], device), eps)
+    if not is_hier(model):
+        return model.encode_latent(tree_to_device(batch['tree'], device),
+                                   eps)
+    graph = tree_to_device(batch['graph'], device)
+    tree = tree_to_device(batch['tree'], device, _TREE_KEYS + ('cgraph',),
+                          n_atoms=len(batch['graph']['fnode']))
+    return model.encode_latent(tree, eps, graph=graph)
 
 
 def reconstruct(model, mb, vocab: PairVocab, avocab=common_atom_vocab,

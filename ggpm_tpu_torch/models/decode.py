@@ -1,7 +1,8 @@
 """Batched autoregressive decoding: reconstruction and sampling (counterpart
 of ``ggpm_tpu/models/decode.py``: ``hier_topk``, the exact motif path
 ``decode_motif``, the device-resident turbo path ``decode_motif_turbo``,
-``decode_best`` and ``sample_prior``; the hier family comes later).
+the exact hier path ``decode_hier``, ``decode_best`` and ``sample_prior``;
+the hier turbo path is ROADMAP A5).
 
 The exact path grows one junction tree and one molecule per sample
 (``models/inc_graph.py``) and makes one device call per step,
@@ -92,23 +93,29 @@ def _forced_backtrack(tree, stack, b):
 
 
 def _try_assemble(tree, graph, vocab, b, new_node, fa_node, cls_beam,
-                  cls_topk_row, icls_topk_row, log_entry):
+                  cls_topk_row, icls_topk_row, log_entry, score_cands=None):
     """Beam-retry motif assembly with chemical-validity rollback (reference
-    decoder.py:1037-1077).  The motif decoder scores every candidate the
-    same, so candidates are tried in the stable enumeration order; returns
-    the committed ``(clab, ilab)`` on success (truthy), None on total
-    failure."""
+    decoder.py:1037-1077).  ``score_cands(b, smiles, inter_cands,
+    anchor_smiles, nth_child, ilab)`` orders a set of several candidates
+    (the hier decoder scores them against its atom hiddens); without it
+    they are tried in the stable enumeration order, the motif decoder's
+    case, which scores every candidate the same.  Returns the committed
+    ``(clab, ilab)`` on success (truthy), None on total failure."""
     try:
         for kk in cls_beam:
             clab, ilab = int(cls_topk_row[kk]), int(icls_topk_row[kk])
             tree.set_node_feature(new_node, (clab, ilab))
             ismiles = vocab.get_ismiles(ilab)
             fa_cluster, _, fa_used = tree.get_cluster(fa_node)
-            inter_cands, _, attach_points = \
+            inter_cands, anchor_smiles, attach_points = \
                 graph.get_assm_cands(fa_cluster, fa_used, ismiles)
             if len(inter_cands) == 0:
                 continue
             nth_child = 0 if len(inter_cands) == 1 else tree.in_degree(fa_node)
+            if len(inter_cands) > 1 and score_cands is not None:
+                inter_cands = score_cands(b, vocab.get_smiles(clab),
+                                          inter_cands, anchor_smiles,
+                                          nth_child, ilab)
             for inter_label in inter_cands:
                 pairs = list(zip(inter_label, attach_points))
                 if graph.try_add_mol(b, ismiles, pairs):
@@ -266,6 +273,266 @@ def decode_motif(model, vocab: PairVocab, avocab: Vocab, root_vecs,
             ok = _try_assemble(tree, graph, vocab, b, new_node, fa_node,
                                cls_beam, cls_topk[b], icls_topk[b],
                                results[b][-1] if log_steps else None)
+            if not ok:  # forced backtrack (reference decoder.py:1079-1089)
+                _forced_backtrack(tree, stack, b)
+
+    smiles_out = graph.get_smiles()
+    while len(smiles_out) < batch_size:
+        smiles_out.append(None)
+    return results, smiles_out
+
+
+# the hier decode's fixed widths (JAX ``decode_hier``'s defaults): the
+# atoms (kn) and bond rows (ke) of a frontier cluster that a step
+# refreshes, and the assembly candidates scored per case (cand_cap)
+HIER_KN, HIER_KE, HIER_CAND_CAP = 32, 72, 24
+# the last ``decode_hier`` call's device steps (``hdec_step_fused``: five
+# ``nei_sum`` launches each) and ``hdec_assm`` calls, for profiling and
+# chip_smoke.py's launch checks
+HIER_STATS: dict = {}
+
+
+def is_hier(model) -> bool:
+    """Whether ``model`` is of the hier family (JAX ``api._is_hier``)."""
+    return type(model).__name__.startswith('Hier')
+
+
+@torch.inference_mode()
+def decode_hier(model, vocab: PairVocab, avocab: Vocab, root_vecs,
+                greedy: bool = True, max_decode_step: int = 150,
+                beam: int = 5, max_nodes: int = 400, max_edges: int = 500,
+                rng: Optional[np.random.Generator] = None,
+                log_steps: bool = False):
+    """Decode a batch of latent vectors [B, latent] with a hier model on
+    its device (the exact path, JAX decode.py:334-605; reference
+    HierMPNDecoder.decode, decoder.py:303-472).
+
+    As ``decode_motif``, plus the atom level: each step's one device call,
+    ``HierDecoder.hdec_step_fused``, refreshes the frontier cluster's atom
+    hiddens (its first ``HIER_KE`` bond rows and ``HIER_KN`` atoms), and a
+    set of several assembly candidates is ordered by ``hdec_assm``'s scores
+    against them.  Greedy decodes score every sample's first attempt in one
+    batched call a step (its first ``HIER_CAND_CAP`` candidates); retries
+    score one case a call.  Returns (results, smiles_list); ``results[b]`` holds
+    the per-step entries (the topology probability, and with
+    ``log_steps`` the attached fragment)."""
+    rng = rng or np.random.default_rng(0)
+    kn, ke, cand_cap = HIER_KN, HIER_KE, HIER_CAND_CAP
+    dec = model._decoder()
+    device = next(dec.parameters()).device
+    if not isinstance(root_vecs, torch.Tensor):
+        root_vecs = torch.from_numpy(np.array(root_vecs, dtype=np.float32))
+    root_vecs = root_vecs.to(device, torch.float32)
+    mask = torch.from_numpy(vocab.mask).to(device)
+    batch_size = root_vecs.shape[0]
+    results = [[] for _ in range(batch_size)]
+
+    tree = IncTree(batch_size, max_nodes=max_nodes, max_edges=max_edges,
+                   max_sub_nodes=kn)
+    graph = IncGraph(avocab, batch_size, max_nodes=max_nodes,
+                     max_edges=max_edges + 100)
+    stack: List[List[int]] = [[] for _ in range(batch_size)]
+
+    # root prediction (reference decoder.py:313-324)
+    cls_scores, icls_scores = dec.hdec_root_cls(root_vecs)
+    root_cls = torch.argmax(cls_scores, dim=-1).cpu().numpy()
+    icls_masked = icls_scores.cpu().numpy() + vocab.get_mask(root_cls)
+    root_icls = icls_masked.argmax(axis=-1)
+
+    super_root = tree.add_node()
+    for b in range(batch_size):
+        clab, ilab = int(root_cls[b]), int(root_icls[b])
+        results[b].append({'root': vocab.get_smiles(clab),
+                           'Attaching Fragment': {
+                               'mol': clab,
+                               'attachment': vocab.get_ismiles(ilab)}})
+        root_idx = tree.add_node((clab, ilab))
+        tree.add_edge(super_root, root_idx)
+        stack[b].append(root_idx)
+        new_atoms, new_bonds, attached = graph.add_mol(
+            b, vocab.get_ismiles(ilab), [], 0)
+        tree.register_cgraph(root_idx, new_atoms, new_bonds, attached)
+
+    state = dec.hdec_init(max_edges * batch_size,
+                          (max_edges + 100) * batch_size,
+                          max_nodes * batch_size, max_nodes * batch_size,
+                          root_vecs)
+    max_nb, g_nb = tree.max_nb, graph.max_nb
+    u_greedy = np.full(batch_size, 0.5, dtype=np.float32)
+
+    def pack_cands(smiles, inter_cands, anchor_smiles, nth_child):
+        icls_ids = np.zeros(2, dtype=np.int32)
+        for j, a_s in enumerate(anchor_smiles[:2]):
+            try:
+                icls_ids[j] = vocab[(smiles, a_s)][1]
+            except KeyError:
+                pass
+        cand_arr = np.zeros((cand_cap, 2), dtype=np.int32)
+        use = inter_cands[:cand_cap]
+        for j, c in enumerate(use):
+            cand_arr[j, 0] = c[0]
+            cand_arr[j, 1] = c[-1]
+        return (cand_arr, icls_ids, min(len(anchor_smiles), 2),
+                min(nth_child, 19), use)
+
+    def order_cands(sc, use):
+        order = np.argsort(-sc[:len(use)], kind='stable')
+        return [list(use[j]) for j in order]
+
+    def assm_scores(packs, bids):
+        """``hdec_assm`` of the packed cases (one device call)."""
+        cand, icls, n_icls, nth = _upload(
+            device, np.stack([p[0] for p in packs]),
+            np.stack([p[1] for p in packs]),
+            np.array([p[2] for p in packs], dtype=np.int64),
+            np.array([p[3] for p in packs], dtype=np.int64))
+        ctx = root_vecs[torch.as_tensor(bids, device=device)]
+        HIER_STATS['assm_calls'] += 1
+        return dec.hdec_assm(state, cand, icls, n_icls, nth, ctx).cpu().numpy()
+
+    HIER_STATS.update(steps=0, assm_calls=0)
+
+    for t in range(max_decode_step):
+        for r in results:
+            r.append({})
+        batch_list = [b for b in range(batch_size) if stack[b]]
+        if not batch_list:
+            break
+
+        # ---- the frontier clusters' atom rows, and both branches' inputs
+        g_rows = np.zeros((batch_size, ke), dtype=np.int32)
+        g_nodes = np.zeros((batch_size, kn), dtype=np.int32)
+        v_nodes = np.zeros(batch_size, dtype=np.int32)
+        v_clab = np.zeros(batch_size, dtype=np.int32)
+        v_ilab = np.zeros(batch_size, dtype=np.int32)
+        v_cg = np.zeros((batch_size, kn), dtype=np.int32)
+        v_ag = np.zeros((batch_size, max_nb), dtype=np.int32)
+        can_exp = np.zeros(batch_size, dtype=bool)
+        new_rows = np.zeros(batch_size, dtype=np.int32)
+        bt_valid = np.zeros(batch_size, dtype=bool)
+        bt_pos = np.zeros(batch_size, dtype=np.int32)
+        bt_bg = np.zeros((batch_size, max_nb), dtype=np.int32)
+        first = tree.reserve_edges(len(batch_list))
+        reserved = {}
+        for r_i, b in enumerate(batch_list):
+            v = stack[b][-1]
+            edges = tree.get_cluster_edges([v])[:ke]
+            atoms = tree.get_cluster_nodes([v])[:kn]
+            g_rows[b, :len(edges)] = edges
+            g_nodes[b, :len(atoms)] = atoms
+            row = first + r_i
+            reserved[b] = row
+            new_rows[b] = row
+            v_nodes[b] = v
+            v_clab[b] = tree.fnode[v, 0]
+            v_ilab[b] = tree.fnode[v, 1]
+            v_cg[b] = tree.cgraph[v][:kn]
+            v_ag[b] = tree.agraph[v]
+            can_exp[b] = tree.can_expand(v)
+            if len(stack[b]) >= 2:
+                top = stack[b][-2]
+                bt_valid[b] = True
+                bt_pos[b] = min(tree.in_degree(top), 19)
+                rev = tree.edge_dict.get((top, v), 0)
+                bg = tree.agraph[v].copy()
+                bg[bg == rev] = 0
+                bt_bg[b] = bg
+        fr, fn = g_rows.reshape(-1), g_nodes.reshape(-1)
+        u = u_greedy if greedy else rng.random(batch_size).astype(np.float32)
+
+        (d_grows, d_gsrc, d_gbt, d_gnth, d_gbg, d_gnodes, d_gnav, d_gag,
+         d_vnodes, d_vclab, d_vilab, d_vcg, d_vag, d_can, d_u, d_rows,
+         d_btv, d_btpos, d_btbg) = _upload(
+            device, g_rows, np.ascontiguousarray(
+                graph.fmess[fr, 0].reshape(g_rows.shape)),
+            np.ascontiguousarray(graph.fmess[fr, 1].reshape(g_rows.shape)),
+            np.ascontiguousarray(graph.fmess[fr, 2].reshape(g_rows.shape)),
+            np.ascontiguousarray(graph.bgraph[fr].reshape(batch_size, ke,
+                                                          g_nb)),
+            g_nodes, np.ascontiguousarray(
+                graph.fnode[fn, 0].reshape(g_nodes.shape)),
+            np.ascontiguousarray(graph.agraph[fn].reshape(batch_size, kn,
+                                                          g_nb)),
+            v_nodes, v_clab, v_ilab, v_cg, v_ag, can_exp, u, new_rows,
+            bt_valid, bt_pos, bt_bg)
+        state, packed = dec.hdec_step_fused(
+            state, d_grows, d_gsrc, d_gbt, d_gnth, d_gbg, d_gnodes, d_gnav,
+            d_gag, d_vnodes, d_vclab, d_vilab, d_vcg, d_vag, d_can, d_u,
+            d_rows, d_vag, d_btv, d_btpos, d_btbg, root_vecs, mask, beam)
+        HIER_STATS['steps'] += 1
+        packed = packed.cpu().numpy()      # the step's one host sync
+        topo_p = 1.0 / (1.0 + np.exp(-packed[:, 0]))
+        choose = packed[:, 1] > 0.5
+        scores = packed[:, 2:2 + beam]
+        cls_topk = packed[:, 2 + beam:2 + 2 * beam].astype(np.int32)
+        icls_topk = packed[:, 2 + 2 * beam:2 + 3 * beam].astype(np.int32)
+
+        # ---- replay the device's branch choice on the host tree ---------
+        expand_bids = []
+        for b in batch_list:
+            results[b][-1]['Generate fragment'] = float(topo_p[b])
+            row = reserved[b]
+            if choose[b]:
+                parent = stack[b][-1]
+                new_node = tree.add_node()
+                tree.add_edge(parent, new_node, (parent, new_node, 0), row=row)
+                stack[b].append(new_node)
+                expand_bids.append(b)
+            else:
+                child = stack[b].pop()
+                if stack[b]:
+                    top = stack[b][-1]
+                    nth_child = tree.in_degree(top)
+                    tree.add_edge(child, top, (child, top, nth_child), row=row)
+
+        # greedy: every sample's first beam attempt with several candidates
+        # is scored in one device call (a sample's enumeration does not
+        # depend on the other samples' assemblies this step)
+        prescored = {}
+        if greedy:
+            queue = []
+            for b in expand_bids:
+                fa_node = stack[b][-2]
+                clab, ilab = int(cls_topk[b][0]), int(icls_topk[b][0])
+                try:
+                    smiles = vocab.get_smiles(clab)
+                    fa_cluster, _, fa_used = tree.get_cluster(fa_node)
+                    inter_cands, anchor_smiles, _ = graph.get_assm_cands(
+                        fa_cluster, fa_used, vocab.get_ismiles(ilab))
+                except Exception:
+                    continue
+                if len(inter_cands) > 1:
+                    queue.append((b, ilab, pack_cands(
+                        smiles, inter_cands, anchor_smiles,
+                        tree.in_degree(fa_node))))
+            if queue:
+                sc = assm_scores([q[2] for q in queue], [q[0] for q in queue])
+                for (b, ilab, pk), row in zip(queue, sc):
+                    prescored[b] = (ilab, order_cands(row, pk[4]))
+
+        for b in expand_bids:
+            new_node, fa_node = stack[b][-1], stack[b][-2]
+            cls_beam = _pick_beam(greedy, beam, scores[b], rng)
+            pre = prescored.get(b)
+
+            def scorer(bb, smiles, inter_cands, anchor_smiles, nth_child,
+                       ilab_cur, _pre=pre):
+                # the prescored order serves only the same attachment label
+                # and candidate set: scores depend on the child's anchor
+                # embeddings
+                if _pre is not None and _pre[0] == ilab_cur and \
+                        len(_pre[1]) == len(inter_cands) and \
+                        sorted(map(tuple, _pre[1])) == \
+                        sorted(map(tuple, inter_cands)):
+                    return _pre[1]
+                pk = pack_cands(smiles, inter_cands, anchor_smiles,
+                                nth_child)
+                return order_cands(assm_scores([pk], [bb])[0], pk[4])
+
+            ok = _try_assemble(tree, graph, vocab, b, new_node, fa_node,
+                               cls_beam, cls_topk[b], icls_topk[b],
+                               results[b][-1] if log_steps else None,
+                               score_cands=scorer)
             if not ok:  # forced backtrack (reference decoder.py:1079-1089)
                 _forced_backtrack(tree, stack, b)
 
@@ -1000,11 +1267,16 @@ def decode_steps(results) -> int:
 
 def decode_best(model, vocab: PairVocab, avocab: Vocab, root_vecs,
                 greedy: bool = True, log_steps: bool = False, **kwargs):
-    """The JAX package's ``decode_best`` for the motif family: greedy
+    """The JAX package's ``decode_best``: for the motif family greedy
     decodes without per-step logs take the turbo path (which takes
-    ``chunk``), everything else the exact one."""
-    if type(model).__name__.startswith('Hier'):
-        raise NotImplementedError('the port decodes the motif family only')
+    ``chunk``), everything else the exact one.  The hier family takes the
+    exact path, ``decode_hier``, greedy or not: the JAX package sends its
+    greedy decodes to ``decode_hier_turbo``, which gives the same SMILES
+    (``tests/test_torch_hier.py``) and is ROADMAP A5's next item."""
+    if is_hier(model):
+        kwargs.pop('chunk', None)
+        return decode_hier(model, vocab, avocab, root_vecs, greedy=greedy,
+                           log_steps=log_steps, **kwargs)
     if greedy and not log_steps:
         return decode_motif_turbo(model, vocab, avocab, root_vecs,
                                   greedy=True, **kwargs)

@@ -1,9 +1,10 @@
-"""Motif-level graph encoder (counterpart of ``ggpm_tpu/models/encoder.py``:
-``MPNEncoder``, ``pos_onehot``, ``MotifEncoder``; the hierarchical encoder
-arrives with the hier family).
+"""Graph encoders (counterpart of ``ggpm_tpu/models/encoder.py``:
+``MPNEncoder``, ``pos_onehot``, ``MotifEncoder`` and the three-level
+``HierMPNEncoder``).
 
-Both readouts, over ``agraph`` and at the roots, go through the ``nei_sum``
-kernel; a training batch (``data.batching.train_tables``) brings their
+Every readout (over ``agraph`` at each level, at the roots, and the hier
+encoder's cluster sum over ``cgraph``) goes through the ``nei_sum`` kernel,
+and every depth loop gathers through ``gather_rows``; a training batch (``data.batching.train_tables``) brings their
 transpose tables, and then they go through ``nei_sum_t``, whose backward is
 the kernel's transpose.  The motif and attachment embeddings are owned by
 the VAE and shared with the decoder (reference encoder.py:92-94), so the
@@ -104,3 +105,80 @@ class MotifEncoder(nn.Module):
                       level_tables(tree, 'root'))
         root = torch.tanh(self.W_root(torch.cat([froot, nei], dim=-1)))
         return root, node
+
+
+class HierMPNEncoder(nn.Module):
+    """Three-level atom → attachment → motif encoder (reference
+    encoder.py:41-157): the atom level runs ``depthG`` rounds over the
+    molecule's bonds, the attachment and motif levels ``depthT`` rounds
+    each over the junction tree.  Each level's readout, the cluster sum
+    ``nei_sum(hatom, cgraph)`` and the root readout go through the
+    ``nei_sum`` kernel (five launches an encode); ``cgraph`` pads with 0,
+    so it reads row 0 of ``hatom``, which ``MPNEncoder`` zeroes."""
+
+    def __init__(self, E_c: nn.Embedding, E_i: nn.Embedding, hidden_size: int,
+                 depthT: int, depthG: int, atom_vocab_size: int,
+                 dropout_rate: float = 0.0):
+        super().__init__()
+        embed_size = E_c.embedding_dim
+        h = hidden_size
+        self._embed = (E_c, E_i)   # a tuple: not registered as submodules
+        self.atom_vocab_size = atom_vocab_size
+        self.drop = dropout(dropout_rate)
+        self.W_c = nn.Linear(embed_size + h, h)
+        self.W_i = nn.Linear(embed_size + h, h)
+        self.W_root = nn.Linear(2 * h, h)
+        self.tree_encoder = MPNEncoder(h + MAX_POS, h, h, depthT,
+                                       dropout_rate)
+        self.inter_encoder = MPNEncoder(h + MAX_POS, h, h, depthT,
+                                        dropout_rate)
+        self.graph_encoder = MPNEncoder(atom_vocab_size + 4 + MAX_POS,
+                                        atom_vocab_size, h, depthG,
+                                        dropout_rate)
+
+    def embed_graph(self, graph: Dict[str, torch.Tensor]):
+        """Atom-level features (reference encoder.py:119-126): the atom
+        type one-hot of each atom, and of each bond message its source
+        atom's, its bond type's (4) and its position's."""
+        fnode, fmess = graph['fnode'], graph['fmess']
+        hnode = F.one_hot(fnode.long(), self.atom_vocab_size).float()
+        hmess = torch.cat([
+            gather_nd(hnode, fmess[:, 0]),
+            F.one_hot(fmess[:, 2].clamp(0, 3).long(), 4).float(),
+            pos_onehot(fmess[:, 3])], dim=-1)
+        return hnode, hmess
+
+    def forward(self, tree: Dict[str, torch.Tensor],
+                graph: Dict[str, torch.Tensor]):
+        """(root vectors, motif node hiddens, attachment node hiddens, atom
+        hiddens)."""
+        E_c, E_i = self._embed
+        hnode_g, hmess_g = self.embed_graph(graph)
+        hatom, _ = self.graph_encoder(
+            hnode_g, hmess_g, graph['agraph'], graph['bgraph'],
+            level_tables(graph, 'bgraph'), level_tables(graph, 'agraph'))
+        fnode, fmess = tree['fnode'], tree['fmess']
+        # attachment level (reference embed_inter, encoder.py:96-107)
+        finput = self.drop(E_i(fnode[:, 1]))
+        hclu = readout(hatom, tree['cgraph'], level_tables(tree, 'cgraph'))
+        hnode_i = self.drop(F.relu(self.W_i(torch.cat([finput, hclu], -1))))
+        hmess_i = torch.cat([gather_nd(hnode_i, fmess[:, 0]),
+                             pos_onehot(fmess[:, 2])], dim=-1)
+        hinter, _ = self.inter_encoder(
+            hnode_i, hmess_i, tree['agraph'], tree['bgraph'],
+            level_tables(tree, 'bgraph'), level_tables(tree, 'agraph'))
+        # motif level (reference embed_tree, encoder.py:109-117)
+        cinput = self.drop(E_c(fnode[:, 0]))
+        hnode_t = self.drop(F.relu(self.W_c(torch.cat([cinput, hinter], -1))))
+        hmess_t = torch.cat([gather_nd(hnode_t, fmess[:, 0]),
+                             pos_onehot(fmess[:, 2])], dim=-1)
+        hnode, hmess = self.tree_encoder(
+            hnode_t, hmess_t, tree['agraph'], tree['bgraph'],
+            level_tables(tree, 'bgraph'), level_tables(tree, 'agraph'))
+        # root readout over the motif level (reference encoder.py:128-138)
+        roots = tree['scope'][:, 0]
+        froot = gather_nd(hnode_t, roots)
+        nei = readout(hmess, gather_nd(tree['agraph'], roots),
+                      level_tables(tree, 'root'))
+        hroot = torch.tanh(self.W_root(torch.cat([froot, nei], dim=-1)))
+        return hroot, hnode, hinter, hatom

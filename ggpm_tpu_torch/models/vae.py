@@ -1,9 +1,10 @@
-"""The motif VAE with property heads (counterpart of
-``ggpm_tpu/models/vae.py``: ``ModelConfig``, ``PropertyVAE`` and
-``PropOptVAE`` with their training forwards), and ``init_params``, flax's
-default initialisers.
+"""The VAE models (counterpart of ``ggpm_tpu/models/vae.py``:
+``ModelConfig``, ``PropertyVAE`` and ``PropOptVAE`` with their training
+forwards, ``HierPropertyVAE`` and ``HierPropOptVAE`` for serving), and
+``init_params``, flax's default initialisers.
 
-Reference: ggpm/property_vae.py (PropertyVAE, PropOptVAE).
+Reference: ggpm/property_vae.py (PropertyVAE, PropOptVAE, HierPropertyVAE,
+HierPropOptVAE).
 """
 
 from __future__ import annotations
@@ -16,26 +17,33 @@ import torch
 from torch import nn
 
 from .decoder import MotifDecoder
-from .encoder import MotifEncoder
+from .encoder import HierMPNEncoder, MotifEncoder
 from .heads import LossWeigh, PropertyOptimizer
+from .hier_decoder import HierDecoder
 
 
 @dataclass
 class ModelConfig:
-    """The fields of ``ggpm_tpu.models.vae.ModelConfig`` that the motif
-    family reads.  The defaults are the trained HOPV prop-opt model's
-    (scripts/quality_run.py); the encoder is the LSTM one, with embeddings
-    tied between encoder and decoder.  The GRU cell is ROADMAP A5."""
+    """The fields of ``ggpm_tpu.models.vae.ModelConfig`` that the port
+    reads.  The defaults are the JAX package's; those of the motif family
+    are the trained HOPV prop-opt model's too (scripts/quality_run.py),
+    which trains the hier family with ``diterG`` 3.  The encoder is the
+    LSTM one, with embeddings tied between encoder and decoder.  The GRU
+    cell and untied embeddings are ROADMAP A5."""
     hvocab_size: int
     ivocab_size: int
+    atom_vocab_size: int = 38
     embed_size: int = 250
     hidden_size: int = 250
     latent_size: int = 24
     linear_hidden_size: int = 128
     depthT: int = 20
+    depthG: int = 20
     diterT: int = 1
+    diterG: int = 5
     dropout: float = 0.0
     rnn_type: str = 'LSTM'
+    tie_embedding: bool = True
     loss_scaling: bool = False
 
     def __post_init__(self):
@@ -43,6 +51,10 @@ class ModelConfig:
             raise NotImplementedError(
                 f'rnn_type {self.rnn_type!r}: the port has the LSTM cell '
                 f'only; the GRU cell is ROADMAP A5')
+        if not self.tie_embedding:
+            raise NotImplementedError(
+                'tie_embedding False: the port shares the embeddings '
+                'between encoder and decoder; untied ones are ROADMAP A5')
 
     @classmethod
     def from_configs(cls, configs, vocab) -> 'ModelConfig':
@@ -57,8 +69,9 @@ class ModelConfig:
         return cls(hvocab_size=hv, ivocab_size=iv, **{
             k: getattr(configs, k) for k in (
                 'embed_size', 'hidden_size', 'latent_size',
-                'linear_hidden_size', 'depthT', 'diterT', 'dropout',
-                'rnn_type', 'loss_scaling') if hasattr(configs, k)})
+                'linear_hidden_size', 'depthT', 'depthG', 'diterT',
+                'diterG', 'dropout', 'rnn_type', 'tie_embedding',
+                'loss_scaling') if hasattr(configs, k)})
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -230,3 +243,75 @@ class PropOptVAE(nn.Module):
         metrics = dict(metrics, Loss=total, KL=kl, Recs_Loss=recon_loss,
                        HOMO_MSE=homo_loss, LUMO_MSE=lumo_loss)
         return total, metrics, {'clipped': clipped.detach()}
+
+
+def _no_hier_training(name: str):
+    raise NotImplementedError(
+        f'{name}.forward: the port serves the hier family; its training '
+        f'forward (HierDecoder.__call__ and the losses) is ROADMAP A5')
+
+
+class HierPropertyVAE(nn.Module):
+    """Hierarchical (3-level) VAE (reference property_vae.py:11-62;
+    registry name ``hier-prop``): ``HierMPNEncoder``, the posterior heads
+    and ``HierDecoder``, with the embeddings tied between encoder and
+    decoder.  It serves (encode, decode); training it is ROADMAP A5."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.E_c = nn.Embedding(cfg.hvocab_size, cfg.embed_size)
+        self.E_i = nn.Embedding(cfg.ivocab_size, cfg.embed_size)
+        self.encoder = HierMPNEncoder(self.E_c, self.E_i, cfg.hidden_size,
+                                      cfg.depthT, cfg.depthG,
+                                      cfg.atom_vocab_size, cfg.dropout)
+        self.decoder = HierDecoder(self.E_c, self.E_i, cfg.hidden_size,
+                                   cfg.latent_size, cfg.atom_vocab_size,
+                                   cfg.diterT, cfg.diterG, cfg.dropout)
+        self.R_mean = nn.Linear(cfg.hidden_size, cfg.latent_size)
+        self.R_var = nn.Linear(cfg.hidden_size, cfg.latent_size)
+
+    def _decoder(self) -> HierDecoder:
+        return self.decoder
+
+    rsample = PropertyVAE.rsample
+
+    def encode_latent(self, tree: Dict[str, torch.Tensor],
+                      eps: Optional[torch.Tensor] = None,
+                      graph: Optional[Dict[str, torch.Tensor]] = None):
+        """Latent and KL of a batch's ``tree`` and atom-level ``graph``."""
+        root, _, _, _ = self.encoder(tree, graph)
+        return self.rsample(root, eps)
+
+    def forward(self, *args, **kwargs):
+        _no_hier_training(type(self).__name__)
+
+
+class HierPropOptVAE(nn.Module):
+    """Hierarchical VAE + HOMO/LUMO heads on the split latent (reference
+    property_vae.py:130-254; registry name ``hier-prop-opt``).  The JAX
+    package nests the VAE under ``hier/`` beside ``property_optim/``."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.half_latent = cfg.latent_size // 2
+        self.hier = HierPropertyVAE(cfg)
+        self.property_optim = PropertyOptimizer(
+            self.half_latent, cfg.latent_size - self.half_latent,
+            cfg.linear_hidden_size, cfg.dropout)
+        if cfg.loss_scaling:
+            self.loss_weigh = LossWeigh()
+
+    def _decoder(self) -> HierDecoder:
+        return self.hier.decoder
+
+    def encode_latent(self, tree: Dict[str, torch.Tensor],
+                      eps: Optional[torch.Tensor] = None,
+                      graph: Optional[Dict[str, torch.Tensor]] = None):
+        return self.hier.encode_latent(tree, eps, graph=graph)
+
+    predict_properties = PropOptVAE.predict_properties
+
+    def forward(self, *args, **kwargs):
+        _no_hier_training(type(self).__name__)

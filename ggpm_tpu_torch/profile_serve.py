@@ -1,7 +1,8 @@
 """Where the time of one ``/encode``, of a decode and of an ``/optimize``
 goes on a GPU.
 
-    python -m ggpm_tpu_torch.profile_serve [--propose-sweep] [--out PATH]
+    python -m ggpm_tpu_torch.profile_serve [--propose-sweep] [--hier]
+        [--out PATH]
 
 Encode: host tensorization, the encoder's wall time on the device, the
 device's busy and idle share (of the encoder alone and of the whole
@@ -14,7 +15,11 @@ between chemistry and the rest, and the device's busy and idle share.
 path's lookahead and ladder were chosen, and what ``chunk`` gives.
 ``profile_optimize`` (one ``/optimize`` of the 64 molecules under a
 policy; chip_smoke.py runs it at ``OPTIMIZE_SETTINGS``) has no flag here.
-Prints one JSON object (and writes it to ``--out`` if given).  Needs a CUDA device;
+``--hier`` adds ``hier_profiles``: the trained ``hier-prop`` checkpoint's
+encode of the 64 molecules (host tensorize ms, encode wall ms, device busy
+ms, ``nei_sum`` and ``gather_rows`` launches an encode by the wrappers and
+by the device events) and its exact decode of their latents
+(``profile_decode``'s ``hier`` path).  Prints one JSON object (and writes it to ``--out`` if given).  Needs a CUDA device;
 it has no CPU mode.
 """
 
@@ -47,6 +52,8 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_MOLS = 64      # the request chip_smoke.py sends
 N_DECODE = 120   # the decode measurement (ROADMAP A1)
 REPS = 10
+HIER_CKPT = os.path.join(_ROOT, 'runs', 'QUALITY_hier_hopv.json.ckpt')
+HIER_VOCAB = os.path.join(_ROOT, 'runs', 'QUALITY_hier_hopv.json.vocab.txt')
 _WRAPPERS = (nei_sum, transpose_sum, gather_rows)
 # /optimize's targets in chip_smoke.py: each molecule's own HOMO + 0.01
 # and LUMO - 0.01 (Hartree), and each policy's settings, which the golden
@@ -83,6 +90,16 @@ def _device_us(event) -> float:
         if hasattr(event, name):
             return float(getattr(event, name))
     return 0.0
+
+
+def kernel_of(key: str):
+    """Which of the port's kernels a profiler event of a device kernel is,
+    by the kernel's name in its source (``csrc/<name>.cu``:
+    ``<name>_kernel``); None for any other."""
+    for w in _WRAPPERS:
+        if f'{w.__name__}_kernel' in key:
+            return w.__name__
+    return None
 
 
 def profiled(fn, reps: int = 1):
@@ -133,7 +150,8 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
                    ) -> dict:
     """One greedy decode of latents ``z`` on the card through ``path``:
     ``turbo`` (``decode_motif_turbo``, which ``/reconstruct`` and
-    ``/sample`` take) or ``exact`` (``decode_motif`` without logs), after
+    ``/sample`` take), ``exact`` (``decode_motif`` without logs) or, for a
+    hier model, ``hier`` (``decode_hier`` without logs), after
     one untimed decode of the same latents (first use of the shapes on the
     card, the turbo path's graph captures, the chemistry's caches).
 
@@ -141,7 +159,7 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
     molecules/s, and the host split: seconds in the chemistry
     (``_try_assemble``) and the rest, and of the rest in writing the
     SMILES (``IncGraph.get_smiles``); ``nei_sum`` launches; for ``exact``
-    its steps; for ``turbo`` the rounds, fallbacks, rungs, pending samples,
+    and ``hier`` its steps (and for ``hier`` its ``hdec_assm`` calls); for ``turbo`` the rounds, fallbacks, rungs, pending samples,
     steps active and run per round, the steps run outside the rounds, and
     the seconds waiting for traces and replaying them.  From a profiled
     repeat: device busy time, kernel launches, and ``nei_sum_kernel``'s
@@ -149,13 +167,17 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
     wrapper counted in it.  The idle share is one minus busy over the
     unprofiled wall time."""
     turbo = path == 'turbo'
-    if path not in ('turbo', 'exact'):
+    if path not in ('turbo', 'exact', 'hier'):
         raise ValueError(f'profile_decode: no decode path {path!r}')
 
     def run():
         if turbo:
             out = decode.decode_motif_turbo(model, vocab, common_atom_vocab,
                                             z, greedy=True, **decode_kwargs)
+        elif path == 'hier':
+            out = decode.decode_hier(model, vocab, common_atom_vocab, z,
+                                     greedy=True, log_steps=False,
+                                     **decode_kwargs)
         else:
             out = decode.decode_motif(model, vocab, common_atom_vocab, z,
                                       greedy=True, log_steps=False,
@@ -171,7 +193,7 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
         results, smiles = run()
         wall = time.perf_counter() - t0
     launches = nei_sum.launches - launches
-    stats = {k: v for k, v in decode.TURBO_STATS.items()} if turbo else {}
+    stats = dict(decode.TURBO_STATS if turbo else decode.HIER_STATS)
     counted = nei_sum.launches
     busy_us, events = profiled(run)
     counted = nei_sum.launches - counted
@@ -203,6 +225,9 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
         steps = decode.decode_steps(results)
         out.update(steps=steps, ms_per_step=1e3 * wall / steps,
                    chemistry_ms_per_step=1e3 * chem / steps)
+        if path == 'hier':
+            out.update(assm_calls=stats['assm_calls'],
+                       nei_sum_per_step=launches / steps)
     return out
 
 
@@ -363,6 +388,9 @@ def main(argv=None) -> dict:
                                                    'hopv15.csv'))
     ap.add_argument('--out', default=None)
     ap.add_argument('--propose-sweep', action='store_true')
+    ap.add_argument('--hier', action='store_true',
+                    help='also profile the hier-prop checkpoint\'s encode '
+                         'and exact decode of the 64 molecules')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_serve needs a CUDA device')
@@ -380,6 +408,11 @@ def main(argv=None) -> dict:
                decode=decode_profiles(model, vocab, all_rows,
                                       args.propose_sweep),
                **encode_profile(model, vocab, rows))
+    if args.hier:
+        hmodel, hvocab = load_model(HIER_CKPT, HIER_VOCAB, device='cuda')
+        hrows = prune_to_vocab(read_csv_data(args.data), hvocab,
+                               verbose=False)[:N_MOLS]
+        out['hier'] = hier_profiles(hmodel, hvocab, hrows)
     text = json.dumps(out)
     print(text, flush=True)
     if args.out:
@@ -405,18 +438,24 @@ def decode_profiles(model, vocab, rows, sweep: bool) -> dict:
 
 
 def encode_profile(model, vocab, rows) -> dict:
-    """The encode of ``rows`` as ``/encode`` and ``/properties`` run it."""
+    """The encode of ``rows`` as ``/encode`` and ``/properties`` run it
+    (``/encode`` alone for a model without property heads): host
+    tensorization, the encode's wall and device busy ms, the device's idle
+    share, and each kernel's launches an encode by its wrapper and by the
+    profiler's device events."""
     host_s = []
     for _ in range(3):
         t0 = time.perf_counter()
         batch = to_model_batch(tensorize(rows, vocab, common_atom_vocab),
                                vocab.mask, pad=False)
         host_s.append(time.perf_counter() - t0)
+    heads = hasattr(model, 'predict_properties')
 
     def run():
         z, _ = encode(model, batch)
-        with torch.no_grad():
-            model.predict_properties(z)
+        if heads:
+            with torch.no_grad():
+                model.predict_properties(z)
         torch.cuda.synchronize()
 
     for _ in range(3):
@@ -429,12 +468,19 @@ def encode_profile(model, vocab, rows) -> dict:
 
     # the profiler slows the host: busy time comes from it, wall time and
     # idle share from the unprofiled runs above
+    before = {k.__name__: k.launches for k in _WRAPPERS}
     busy_us, events = profiled(run, REPS)
     nei = [e for e in events if 'nei_sum_kernel' in e.key]
+    device = {k.__name__: 0.0 for k in _WRAPPERS}
+    for e in events:
+        if kernel_of(e.key):
+            device[kernel_of(e.key)] += e.count / REPS
     return dict(
         n_mols=len(rows),
         tree_shape=dict(nodes=int(batch['tree']['fnode'].shape[0]),
                         messages=int(batch['tree']['fmess'].shape[0])),
+        graph_shape=dict(atoms=int(batch['graph']['fnode'].shape[0]),
+                         messages=int(batch['graph']['fmess'].shape[0])),
         host_tensorize_ms=1e3 * float(np.median(host_s)),
         encode_wall_ms=1e3 * float(np.median(wall_s)),
         device_busy_ms=busy_us / 1e3,
@@ -442,11 +488,26 @@ def encode_profile(model, vocab, rows) -> dict:
         request_device_idle_share=1.0 - busy_us / 1e6 / (
             float(np.median(host_s)) + float(np.median(wall_s))),
         device_launches_per_encode=sum(e.count for e in events) / REPS,
+        launches_per_encode={k.__name__: (k.launches - before[k.__name__])
+                             / REPS for k in _WRAPPERS},
+        device_launches_per_encode_by_kernel=device,
         nei_sum_device_us_per_launch=(
             sum(_device_us(e) for e in nei) / sum(e.count for e in nei)
             if nei else None),
         top_device_kernels=top_kernels(events, REPS))
 
+
+def hier_profiles(model, vocab, rows) -> dict:
+    """The hier family's serve path on the card: ``encode_profile`` of
+    ``model`` (the trained ``hier-prop`` checkpoint on the card) over
+    ``rows`` (SMILES, HOMO, LUMO), and ``profile_decode``'s ``hier`` path
+    over their latents (the exact decode, which ``/reconstruct`` and
+    ``/sample`` take for the family)."""
+    batch = to_model_batch(tensorize(rows, vocab, common_atom_vocab),
+                           vocab.mask, pad=False)
+    z = encode(model, batch)[0]
+    return dict(encode=encode_profile(model, vocab, rows),
+                decode=profile_decode(model, vocab, z, 'hier'))
 
 if __name__ == '__main__':
     main()

@@ -45,7 +45,7 @@ from .data.dataset import prune_to_vocab, read_csv_data
 from .graph.mol_graph import MolGraphBatch, tensorize
 from .graph.vocab import PairVocab, common_atom_vocab, load_vocab_file
 from .ops import gather_rows, nei_sum, transpose_sum
-from .profile_serve import _device_us, profiled, top_kernels
+from .profile_serve import _device_us, kernel_of, profiled, top_kernels
 from .train.loop import Trainer, flushes, signature
 from .train.optim import (default_group_fn, make_multi_optimizer,
                           make_optimizer)
@@ -267,15 +267,6 @@ def update_deviation(steps: List[dict], golden: dict) -> List[dict]:
     return out
 
 
-def _kernel_of(key: str) -> Optional[str]:
-    """Which of ``KERNELS`` a profiler event of a device kernel is, by the
-    kernel's name in its source (``csrc/<name>.cu``: ``<name>_kernel``)."""
-    for name in KERNELS:
-        if f'{name}_kernel' in key:
-            return name
-    return None
-
-
 def _counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
@@ -335,7 +326,7 @@ def replay_windows(trainer: Trainer, groups: List[List[dict]]
             signature=signature(db),
             launches={k: float(v - before[k]) for k, v in _counts().items()},
             device={name: float(sum(e.count for e in events
-                                    if _kernel_of(e.key) == name))
+                                    if kernel_of(e.key) == name))
                     for name in KERNELS},
             records=sum(e.count for e in events)))
     return out
@@ -423,11 +414,11 @@ def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch],
         kernel_launches_per_step=per_kernel,
         kernel_device_launches_per_step={
             name: sum(e.count for e in events
-                      if _kernel_of(e.key) == name) / n_steps
+                      if kernel_of(e.key) == name) / n_steps
             for name in KERNELS},
         kernel_device_us_per_step={
             name: sum(_device_us(e) for e in events
-                      if _kernel_of(e.key) == name) / n_steps
+                      if kernel_of(e.key) == name) / n_steps
             for name in KERNELS},
         top_device_kernels=top_kernels(events, n_steps, n=12))
     if graph:

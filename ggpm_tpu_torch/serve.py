@@ -18,7 +18,11 @@
 HOMO/LUMO values (``latent.control.LatentOptimizer`` with the policy's
 defaults; ``GgpmServer.optimize`` takes its other settings as keywords),
 predicts the properties at the searched latents and decodes them through
-the turbo path.  A failed request answers 500 with ``{"error": str(e)}``.
+the turbo path.  A model of the hier family (``is_hier``) encodes its
+molecules' atom level too and decodes through the exact hier path
+(``models/decode.py:decode_best``); ``/properties`` and ``/optimize`` need
+property heads (``prop-opt``, ``hier-prop-opt``).  A failed request
+answers 500 with ``{"error": str(e)}``.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from .graph.mol_graph import tensorize
 from .graph.vocab import PairVocab, common_atom_vocab
 from .latent.control import LatentOptimizer
 from .models.api import encode as _encode
-from .models.decode import decode_best, sample_prior
+from .models.decode import decode_best, is_hier, sample_prior
 
 
 class GgpmServer:
@@ -46,6 +50,7 @@ class GgpmServer:
         self.vocab = vocab
         self.avocab = avocab
         self.max_decode_step = max_decode_step
+        self.is_hier = is_hier(model)
         self.lock = threading.Lock()   # one request on the model at a time
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None

@@ -460,12 +460,42 @@ def test_non_greedy_decode_full_width(trained):
     assert smiles == jsmiles
 
 
-def test_decode_best_refuses_the_hier_family(trained):
+def _hier_routes(trained, monkeypatch):
+    """``decode_best`` of a hier model, greedy or not, with or without
+    logs, with the motif paths refusing it: the keyword arguments of each
+    call that reached ``decode_hier``."""
     class HierPropOptVAE:
         pass
-    with pytest.raises(NotImplementedError):
+    calls = []
+
+    def refuse(*a, **kw):
+        raise AssertionError('a motif path took a hier model')
+    monkeypatch.setattr(decode, 'decode_motif', refuse)
+    monkeypatch.setattr(decode, 'decode_motif_turbo', refuse)
+    monkeypatch.setattr(decode, 'decode_hier',
+                        lambda *a, **kw: calls.append(kw) or ([], []))
+    for greedy, logs in ((True, False), (True, True), (False, False)):
         decode.decode_best(HierPropOptVAE(), trained['vocab'],
-                           common_atom_vocab, trained['z'])
+                           common_atom_vocab, trained['z'], greedy=greedy,
+                           log_steps=logs, chunk=8)
+    return calls
+
+
+def test_decode_best_refuses_the_hier_family(trained, monkeypatch):
+    """``decode_best`` refuses the motif paths to a hier model: none of
+    its calls reaches ``decode_motif`` or ``decode_motif_turbo`` (the hier
+    family's own decode is held by tests/test_torch_hier*.py)."""
+    assert len(_hier_routes(trained, monkeypatch)) == 3
+
+
+def test_decode_best_routes_the_hier_family_to_decode_hier(trained,
+                                                           monkeypatch):
+    """A hier model goes to the exact hier path, greedy or not, with or
+    without logs, without the turbo path's ``chunk``."""
+    calls = _hier_routes(trained, monkeypatch)
+    assert [(c['greedy'], c['log_steps']) for c in calls] == \
+        [(True, False), (True, True), (False, False)]
+    assert not any('chunk' in c for c in calls)
 
 
 @pytest.fixture(scope='module')
