@@ -95,8 +95,8 @@ script exits non-zero:
              times by the wrappers' counts and by the profiler's device
              events (``train graph vs eager``: signatures captured, capture
              seconds, the graphs' pools, peak memory).  Then it times
-             epochs eagerly and through graphs in turns (eager, graph,
-             graph, eager: ``train eager|graph turn i`` and ``train
+             epochs eagerly and through graphs in turns (eager, graph:
+             ``train eager|graph turn i`` and ``train
              turns``; train mols/s, host ms per step, device busy ms, the
              device's idle share, launches per step, from
              ``profile_train.profile_epoch``), each step launching 3 / 22
@@ -171,6 +171,34 @@ script exits non-zero:
              the hier encode
              and exact-decode profiles of the 64
              (``profile_serve.hier_profiles``).
+11. hier train — the hier family's training path: the trained
+             ``hier-prop`` checkpoint (as phase 10) through the port's
+             ``Trainer`` on the 17 full HOPV batches of 20 in its vocab
+             (β 0.1, Adam lr 1e-3, clip 20; ``profile_train.hier_trainer``);
+             the counts are reset just before and read just after.  Its
+             first 3 steps are held to the JAX package's
+             (``ggpm_tpu_torch/goldens/train_hier_hopv.json``), and the
+             first 3 ``hier-prop-opt`` fine-tuning steps (the checkpoint
+             under ``hier/``, seeded property heads, per-group Adam) to
+             ``train_hier_propopt_hopv.json``, both recomputed by
+             tests/test_torch_hier_train.py, by ``profile_train``'s rule for
+             them (``hier_rule``), fixed before any card run.  Then the
+             graph check of phase 7 (two epochs eager and through
+             ``Trainer.scan_steps``'s graphs, bit for bit), each replayed
+             step launching ``nei_sum`` 5 + 5·T, ``transpose_sum`` 59 +
+             15·T and ``gather_rows`` 60 + 10·T times (T the scan's padded
+             steps; ``hier_step_launches``), by the wrappers and the device
+             events; one eager and one graph epoch profiled (``hier train
+             eager|graph``: mols/s, host ms a step, device busy ms, idle
+             share, launches a step, peak memory, the graphs' pools);
+             and the kernels at the step's new call sites
+             (``kernel_bench.hier_train_cases``: ``nei_sum`` at the
+             encoder's five readouts and the scan's five per-step sums,
+             ``transpose_sum`` at their transposes, the atom level's depth
+             gather and the scan's atom-level message-update gather, each
+             with its backward) against the plain version and the
+             in-order sum, timed as in phase 4.  The kernels line's
+             ``hier_train_sites`` carry them.
 
 The line before the last is ``nvidia-smi``'s; the one before it a JSON
 object listing every kernel; the last line is
@@ -223,6 +251,10 @@ HIER_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                            'decode_hier_hopv16.json')
 FINETUNE_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                                'train_propopt_hopv.json')
+HIER_TRAIN_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
+                                 'train_hier_hopv.json')
+HIER_FINETUNE_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
+                                    'train_hier_propopt_hopv.json')
 N_MOLS = 64
 N_DECODE = 120           # the separate decode measurement (ROADMAP A1)
 SAMPLE = {'n': 64, 'seed': 0}
@@ -249,6 +281,10 @@ OPT_PRED_ATOL = 1e-4
 # root and frontier readouts; their transposes and the depth loop's 20
 # rounds' (2 + 20); the 20 rounds
 STEP_LAUNCHES = {'nei_sum': 3.0, 'transpose_sum': 22.0, 'gather_rows': 20.0}
+# the profiled epochs of the train and finetune phases, in turns: eager,
+# graph (PR 11's four turns, eager, graph, graph, eager, cut to two so that
+# the hier train phase fits the run's time)
+TURNS = (False, True)
 # what the train and finetune phases print of each turn, eager and graph
 TURN_KEYS = ('train_mols_per_s', 'train_mols_per_s_with_prep', 'step_wall_ms',
              'host_dispatch_ms_per_step', 'device_busy_ms_per_step',
@@ -322,6 +358,13 @@ assert set(KERNELS) == set(WRAPPERS)
 HIER_SITES = {f'hier-{site}': line for site, line in (
     kernel_bench.HIER_ENCODE_SITES + kernel_bench.HIER_STEP_SITES +
     kernel_bench.HIER_GATHER_SITES)}
+# the hier training step's sums (phase 11), each with the JAX line it ports
+HIER_TRAIN_SITES = dict(kernel_bench.HIER_TRAIN_SITES,
+                        **{'atom-gather': 'ggpm_tpu/ops/graph_ops.py:122 '
+                                          '(graph level)',
+                           'atom-update': 'ggpm_tpu/models/hier_decoder.py:'
+                                          '169 (sparse_update, an XLA '
+                                          'gather)'})
 
 
 def phase(name, t0):
@@ -588,8 +631,8 @@ def golden_train_epoch(name, trainer, make, batches, golden_path, **rule):
     """Phases 7 and 9: the golden steps of ``trainer`` held to the JAX
     package's, the eager and graph epochs held to each other
     (``graph_vs_eager``, fresh trainers from ``make``), then epochs
-    profiled eager and through graphs in turns (eager, graph, graph,
-    eager); the counts are reset just before and read just after, and
+    profiled eager and through graphs in ``TURNS``; the counts are reset
+    just before and read just after, and
     every kernel must have launched.  Returns the first eager profile, the
     counts, the turns and the graph check."""
     with open(golden_path) as f:
@@ -607,7 +650,7 @@ def golden_train_epoch(name, trainer, make, batches, golden_path, **rule):
                              f'package\'s: {bad}')
     check = graph_vs_eager(name, make, batches)
     turns = {False: [], True: []}
-    for i, graph in enumerate((False, True, True, False)):
+    for i, graph in enumerate(TURNS):
         prof = profile_train.profile_epoch(trainer, batches, graph=graph)
         turns[graph].append(prof)
         print(f'{name} {"graph" if graph else "eager"} turn {i} '
@@ -629,14 +672,15 @@ def golden_train_epoch(name, trainer, make, batches, golden_path, **rule):
     return turns[False][0], counts, turns, check
 
 
-def graph_vs_eager(name, make, batches):
+def graph_vs_eager(name, make, batches, expected=STEP_LAUNCHES):
     """Two epochs from the same checkpoint in the JAX order, once eager
     and once through graphs (``Trainer.scan_steps``; the first epoch
     captures one graph per signature, the second replays only): every
     step's metrics, breaker flag and group norms, and the parameters,
     Adam moments and counts after, must be equal bit for bit.  Then every
     replayed step runs again in a profiler window of its own: each must
-    launch ``STEP_LAUNCHES`` by the wrappers' counts, and by the device
+    launch ``expected`` (``STEP_LAUNCHES``, or a function of the scan's
+    steps T) by the wrappers' counts, and by the device
     events in each window that lost no records in the profiler
     (``profile_train.check_replay_windows``; the windows that did are
     printed).  Prints and returns the signatures captured, the
@@ -665,7 +709,7 @@ def graph_vs_eager(name, make, batches):
                if not torch.equal(bits(states[False][k]),
                                   bits(states[True][k]))]
     windows = profile_train.replay_windows(tr, groups)
-    bad, lost = profile_train.check_replay_windows(windows, STEP_LAUNCHES)
+    bad, lost = profile_train.check_replay_windows(windows, expected)
     out = dict(steps=len(rows[True]), differing=differ[:20],
                n_differing=len(differ), keys=sorted(rows[True][0]),
                **tr.graph_stats(),
@@ -681,7 +725,7 @@ def graph_vs_eager(name, make, batches):
                              f'{differ[:20]}')
     if bad:
         raise AssertionError(f'{name}: replayed steps (step, count, '
-                             f'launches) {bad}, expected {STEP_LAUNCHES}')
+                             f'launches) {bad}, expected {expected}')
     return out
 
 
@@ -739,6 +783,84 @@ def finetune_phase(vocab, batches, train_turns):
             for mode, graph in (('eager', False), ('graph', True))}
         for k in TURN_KEYS}), flush=True)
     return prof, counts, check
+
+
+def hier_step_launches(cfg):
+    """A hier training step's launches of each kernel for a scan of T
+    padded steps (phase 11, derived in PERF.md §6): ``nei_sum`` the
+    encoder's five readouts and the scan's five sums a step;
+    ``gather_rows`` the three depth loops' D = depthG + 2·depthT rounds and
+    the scan's U = 2·(diterG + 2·diterT) message-update gathers a step;
+    ``transpose_sum`` the backward of each of those but the motif level's
+    node readout, which the loss does not read, and five gathers of step
+    0 whose states need no gradient yet."""
+    d = cfg.depthG + 2 * cfg.depthT
+    u = 2 * (cfg.diterG + 2 * cfg.diterT)
+    return lambda T: {'nei_sum': 5.0 + 5 * T,
+                      'transpose_sum': 4.0 + d + (5 + u) * T - 5,
+                      'gather_rows': float(d + u * T)}
+
+
+def hier_train_phase(floor):
+    """Phase 11: the hier family's training path.  Returns the eager and
+    graph profiles, the counts of the path, the kernel rows and the graph
+    check."""
+    vocab = profile_train.load_vocab_file(HIER_VOCAB)
+    _, batches = profile_train.hopv_batches(vocab=vocab)
+    if len(batches) != profile_train.STEPS_PER_EPOCH:
+        raise AssertionError(f'{len(batches)} HOPV batches in the hier '
+                             f'vocab, need {profile_train.STEPS_PER_EPOCH}')
+    reset_counts()
+    for finetune, path in ((False, HIER_TRAIN_GOLDEN),
+                           (True, HIER_FINETUNE_GOLDEN)):
+        name = 'hier finetune' if finetune else 'hier train'
+        with open(path) as f:
+            golden = json.load(f)
+        tr, _ = profile_train.hier_trainer('cuda', finetune, vocab)
+        steps = profile_train.golden_steps('cuda', tr, batches)
+        bad = profile_train.check_golden(steps, golden,
+                                         **profile_train.hier_rule(finetune))
+        print(f'{name} golden ' + json.dumps(dict(
+            steps=[{k: v for k, v in s.items() if k != 'update_norms'}
+                   for s in steps],
+            update_deviation=profile_train.update_deviation(steps, golden),
+            failures=bad)), flush=True)
+        if bad:
+            raise AssertionError(f'{name} steps differ from the JAX '
+                                 f'package\'s: {bad}')
+        del tr
+    trainer, _ = profile_train.hier_trainer('cuda', vocab=vocab)
+    expected = hier_step_launches(trainer.model.cfg)
+    check = graph_vs_eager(
+        'hier train', lambda: profile_train.hier_trainer('cuda',
+                                                         vocab=vocab)[0],
+        batches, expected)
+    torch.cuda.empty_cache()
+    groups = profile_train.flush_groups(trainer, batches)
+    want = [expected(db['plan']['mess'].shape[0]) for g in groups for db in g]
+    per_step = {k: sum(w[k] for w in want) / len(want) for k in want[0]}
+    profs = {}
+    for graph in (False, True):
+        prof = profile_train.profile_epoch(trainer, batches, graph=graph,
+                                           full=False)
+        profs[graph] = prof
+        print(f'hier train {"graph" if graph else "eager"} '
+              + json.dumps(prof), flush=True)
+        if prof['kernel_launches_per_step'] != per_step:
+            raise AssertionError(f'hier train: launches per step '
+                                 f'{prof["kernel_launches_per_step"]}, '
+                                 f'expected {per_step}')
+    counts = read_counts()
+    if min(counts.values()) == 0:
+        raise AssertionError(f'a kernel never launched on the hier train '
+                             f'path: {counts}')
+    rows = {}
+    batch = trainer.device_batch(trainer.host_batch(batches[0]))
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    for row in checked(kernel_bench.measure(
+            kernel_bench.hier_train_cases(batch, gen), floor)):
+        rows.setdefault(row['kernel'], {})[row['case']] = row
+    return profs, counts, rows, check
 
 
 def optimize_requests(server, port, rows, golden):
@@ -1116,10 +1238,15 @@ def main() -> int:
     t0 = time.perf_counter()
     ft_prof, fcounts, ft_check = finetune_phase(vocab, train_batches,
                                                 train_turns)
-    counts = {name: counts[name] + dcounts[name] + ocounts[name] +
-              hcounts[name] + tcounts[name] + fcounts[name]
-              for name in counts}
     phase('finetune', t0)
+
+    t0 = time.perf_counter()
+    hier_profs, htcounts, htrain_rows, htrain_check = hier_train_phase(
+        floor_ms())
+    counts = {name: counts[name] + dcounts[name] + ocounts[name] +
+              hcounts[name] + tcounts[name] + fcounts[name] +
+              htcounts[name] for name in counts}
+    phase('hier train', t0)
 
     keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
             'bound_by', 'floor_ms', 'host_ms')
@@ -1143,11 +1270,17 @@ def main() -> int:
                 name],
             launches_per_replayed_step={
                 'train': train_check['launches_per_replayed_step'][name],
-                'finetune': ft_check['launches_per_replayed_step'][name]},
+                'finetune': ft_check['launches_per_replayed_step'][name],
+                'hier_train': htrain_check['launches_per_replayed_step'][
+                    name]},
+            launches_per_hier_train_step={
+                mode: hier_profs[graph]['kernel_launches_per_step'][name]
+                for mode, graph in (('eager', False), ('graph', True))},
             **{key: r[key] for key in keys},
             max_abs_err_all_cases=max(
                 x['max_abs_err'] for x in list(rows_of.values()) +
-                list(hier_rows.get(name, {}).values())),
+                list(hier_rows.get(name, {}).values()) +
+                list(htrain_rows.get(name, {}).values())),
             call_sites=k['call_sites'], case=k['main_case'],
             **({'turbo_decode': in_graph, 'per_optimize_request': {
                 p: o['nei_sum_launches'] for p, o in opt_summary.items()}}
@@ -1159,7 +1292,12 @@ def main() -> int:
             hier_sites={case: dict(
                 {key: row[key] for key in keys}, shape=row['shape'],
                 launches=hier_sites[case], replaces=HIER_SITES[case])
-                for case, row in hier_rows.get(name, {}).items()}))
+                for case, row in hier_rows.get(name, {}).items()},
+            hier_train_sites={case: dict(
+                {key: row[key] for key in keys}, shape=row['shape'],
+                replaces=HIER_TRAIN_SITES.get(case.split('hier-train-')[-1]
+                                              .removesuffix('-bwd')))
+                for case, row in htrain_rows.get(name, {}).items()}))
     print(f'total {time.perf_counter() - t_all:.1f}s', flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)

@@ -1,7 +1,6 @@
 """Shared CLI plumbing: config → vocab → model (counterpart of
-``ggpm_tpu/cli/common.py``).  The port trains the ``prop`` and ``prop-opt``
-models and loads the hier family (``hier-prop``, ``hier-prop-opt``) for
-inference."""
+``ggpm_tpu/cli/common.py``).  The port trains, fine-tunes and serves the
+``prop``, ``prop-opt``, ``hier-prop`` and ``hier-prop-opt`` models."""
 
 from __future__ import annotations
 
@@ -24,32 +23,24 @@ __all__ = ['load_checkpoint', 'maybe_load_pretrained', 'read_csv_data',
            'setup_model', 'write_csv']
 
 # model types of the JAX registry (ggpm_tpu/models/vae.py:OPVNet) that the
-# port does not have, or does not train yet, and the ROADMAP item that
-# brings each
+# port does not have, and the ROADMAP item that brings each
 NOT_PORTED = {'prop-opt-sched': 'A4'}
-NOT_TRAINED = {'hier-prop': 'A5', 'hier-prop-opt': 'A5'}
 MODELS = {'prop': PropertyVAE, 'prop-opt': PropOptVAE,
           'hier-prop': HierPropertyVAE, 'hier-prop-opt': HierPropOptVAE}
 
 
-def setup_model(configs: Configs, model_type: str, seed: int = 1,
-                training: bool = True
+def setup_model(configs: Configs, model_type: str, seed: int = 1
                 ) -> Tuple[Union[PropertyVAE, PropOptVAE, HierPropertyVAE,
                                  HierPropOptVAE], PairVocab, ModelConfig]:
     """Load the vocab and build the model, initialised as flax initialises
     the JAX package's from a generator seeded with ``seed``; returns
-    (model, vocab, config) on the CPU.  ``training``: the model is to be
-    trained, which the hier family is not yet.  The flag and
-    ``NOT_TRAINED`` are temporary: they go, with the hier models'
-    ``_no_hier_training``, when hier training (ROADMAP A5) lands."""
-    item = NOT_PORTED.get(model_type) or (training and
-                                          NOT_TRAINED.get(model_type))
+    (model, vocab, config) on the CPU."""
+    item = NOT_PORTED.get(model_type)
     if item:
         raise NotImplementedError(
-            f'model type {model_type!r}: the port trains the prop and '
-            f'prop-opt models so far and serves the hier family; '
-            f'{"training " if model_type in NOT_TRAINED else ""}'
-            f'{model_type} is ROADMAP {item}')
+            f'model type {model_type!r}: the port has the prop, prop-opt, '
+            f'hier-prop and hier-prop-opt models; {model_type} is ROADMAP '
+            f'{item}')
     if model_type not in MODELS:
         raise ValueError(f'Model {model_type} does not exist')
     vocab = load_vocab_file(configs.vocab_)

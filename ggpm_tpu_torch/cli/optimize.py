@@ -74,7 +74,7 @@ def main(argv=None):
             'patience_threshold', 0.1),
     )
 
-    model, vocab, _ = setup_model(configs, args.model_type, training=False)
+    model, vocab, _ = setup_model(configs, args.model_type)
     load_checkpoint(model, configs)
     model = model.eval().to(args.device)
     data = read_csv_data(configs.get('test_data') or configs.get('data'))

@@ -48,7 +48,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     configs = Configs(path=args.path_to_config)
-    model, vocab, _ = setup_model(configs, args.model_type, training=False)
+    model, vocab, _ = setup_model(configs, args.model_type)
     load_checkpoint(model, configs)
     model = model.eval().to(args.device)
     data = read_csv_data(configs.get('test_data') or configs.get('data'))

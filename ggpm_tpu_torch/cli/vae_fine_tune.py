@@ -10,7 +10,8 @@ Reads the JAX CLI's config keys: the training CSV (``data``) and the
 validation CSV (``val_data``, else ``test_data``), tensorized in batches of
 ``batch_size`` (short batches dropped) and padded to their bucket shapes;
 ``saved_model`` (a ``prop`` or ``prop-opt`` checkpoint) copied in by
-``maybe_load_pretrained``.  ``--indv-opt`` gives the encoder, decoder and
+``maybe_load_pretrained``.  ``--model-type hier-prop-opt`` fine-tunes the
+hier family (its total leaves β·KL out, as the JAX package's does).  ``--indv-opt`` gives the encoder, decoder and
 HOMO and LUMO heads their own Adam (``encoder_lr``, ``decoder_lr``,
 ``homo_lr``, ``lumo_lr``, each defaulting to ``lr``).  It validates every
 ``eval_iter`` steps (default: once an epoch) with early stopping on the

@@ -1,9 +1,10 @@
-"""Pretraining driver for the ``prop`` model (counterpart of
-``ggpm_tpu/cli/vae_train.py``; reference vae_train.py).
+"""Pretraining driver (counterpart of ``ggpm_tpu/cli/vae_train.py``;
+reference vae_train.py) for the ``prop`` and ``hier-prop`` models (and
+the others of the registry the port has).
 
 Usage:
     python -m ggpm_tpu_torch.cli.vae_train --path-to-config configs.json \\
-        --model-type prop --data-csv data.csv [--device cpu]
+        --model-type prop|hier-prop --data-csv data.csv [--device cpu]
 
 Tensorizes the CSV in batches of ``batch_size`` (the last, short batch is
 dropped), pads each to its bucket shape and trains on the card (``cuda``)

@@ -1,5 +1,6 @@
 """Fixed-shape batch assembly (copy of ``ggpm_tpu/data/batching.py``), and
-the host tables of the training path's backward kernels (``train_tables``).
+the host tables of the training path's backward kernels (``train_tables``;
+``hier_train_tables`` for the hier family).
 
 Converts host-side ``MolGraphBatch`` numpy tensors into (optionally
 bucket-padded) arrays.  Padding to a small ladder of bucket shapes bounds the
@@ -287,6 +288,101 @@ def train_tables(batch: Dict) -> Dict:
     plan['frontier_t'], plan['frontier_tm'] = build_transpose(
         fr, n_mess + len(plan['root_clab']), fr.shape[1])
     return dict(batch, tree=tree, plan=plan)
+
+
+def step_transposes(tables: np.ndarray, num_src: int, k: int):
+    """The transposes of T per-step tables at once: ``tables`` [T, N, A]
+    over a state of ``num_src`` rows gives ``(t_idx, t_mask)`` [T,
+    num_src, k], where ``t_idx[t]`` indexes the flat positions of
+    ``tables[t]`` (``build_transpose(tables[t], num_src, k)`` for each t).
+    One ``build_transpose`` covers every step: step t's rows are offset
+    by t·num_src, and its positions come back less t·N·A."""
+    T, N, A = tables.shape
+    shift = (np.arange(T) * num_src)[:, None, None]
+    t_idx, t_mask = build_transpose(
+        np.where(tables > 0, tables + shift, 0).reshape(T * N, A),
+        T * num_src, k)
+    t_idx = t_idx.reshape(T, num_src, k) - (
+        (np.arange(T) * N * A)[:, None, None] * (t_mask.reshape(
+            T, num_src, k) > 0))
+    return t_idx.astype(np.int32), t_mask.reshape(T, num_src, k)
+
+
+def hier_train_tables(batch: Dict) -> Dict:
+    """``batch`` (a ``to_model_batch`` dict of the hier family, its plan
+    unpacked) with the host tables its training forward reads and its
+    backward kernels gather over (``ops.build_transpose``, row 0 left
+    out):
+
+    * ``graph['agraph_t'/'agraph_tm']``: transpose of the atom readout's
+      ``agraph`` over the bond messages; ``tree['cgraph_t'/'cgraph_tm']``
+      of the cluster sum over the atoms; ``tree['agraph_t'/'agraph_tm']``
+      of the attachment and motif readouts (one table for both) and
+      ``tree['root_t'/'root_tm']`` of the root readout, over the tree's
+      messages;
+    * for the teacher-forced scan, each of its five per-step sums as a
+      [T, N, A] table of step t's rows and its per-step transposes
+      (``step_transposes``) over the state that sum reads: ``plan['s_atom'
+      / '_t' / '_tm']`` the atom refresh's ``agraph[gstep_nodes[t]]``
+      over the atom-message state; ``plan['s_clu_src']`` and
+      ``plan['s_clu_x']`` the cluster sums ``cgraph[src]`` and
+      ``cgraph[xid[t]]`` over the atom hiddens (``src`` the source node of
+      step t's message); ``plan['s_inter']`` the attachment frontier's
+      ``agraph[xid[t]]`` over the attachment messages; ``plan['s_tree']``
+      the tree frontier's ``agraph_dec[xid[t]]`` over the tree state's
+      ``num_mess + B`` rows;
+    * likewise the scan's message updates' neighbour gathers (K3 forward,
+      K2 backward): ``plan['u_atom']`` the atom level's
+      ``bgraph[gstep_mess[t]]``, ``plan['u_inter']`` and ``plan['u_tree']``
+      the attachment and motif levels' ``bgraph[mess[t]]`` and
+      ``bgraph_dec[mess[t]]``.
+
+    Each sum reads step t's state, which later steps rewrite (a cluster
+    shares atoms with its parent), so the tables are per step.  Every
+    width is a bound the bucket shapes give, as in ``train_tables``: a
+    message enters one node, so it appears once in ``agraph`` and the root
+    rows, and once in a step's tables (a step's lanes hold distinct
+    molecules, one node or one cluster of distinct atoms each): width 1;
+    a message recurs in a cluster's ``bgraph`` rows at most as often as in
+    the whole table, whose width bounds that (``level_to_dict``).
+    An atom lies in the clusters of the rings and bonds through it (at
+    most 5 in HOPV), fewer than the atom graph's ``agraph`` width (at
+    least 8): that width bounds the cluster sum's.  A table that broke a
+    bound would raise."""
+    tree, graph, plan = (dict(batch['tree']), dict(batch['graph']),
+                         dict(batch['plan']))
+    n_mess, n_gmess = tree['fmess'].shape[0], graph['fmess'].shape[0]
+    n_gnodes = graph['fnode'].shape[0]
+    agraph, cgraph = tree['agraph'], tree['cgraph']
+    graph['agraph_t'], graph['agraph_tm'] = build_transpose(
+        graph['agraph'], n_gmess, 1)
+    tree['cgraph_t'], tree['cgraph_tm'] = build_transpose(
+        cgraph, n_gnodes, graph['agraph'].shape[1])
+    tree['agraph_t'], tree['agraph_tm'] = build_transpose(agraph, n_mess, 1)
+    tree['root_t'], tree['root_tm'] = build_transpose(
+        agraph[tree['scope'][:, 0]], n_mess, 1)
+    xid = np.asarray(plan['xid'])
+    src = tree['fmess'][np.asarray(plan['mess']), 0]
+    T = xid.shape[0]
+    n_tree = n_mess + len(plan['root_clab'])
+    g_bgraph = graph['bgraph']
+    sites = {
+        's_atom': (graph['agraph'][plan['gstep_nodes']].reshape(
+            T, -1, graph['agraph'].shape[1]), n_gmess, 1),
+        's_clu_src': (cgraph[src], n_gnodes, 1),
+        's_clu_x': (cgraph[xid], n_gnodes, 1),
+        's_inter': (agraph[xid], n_mess, 1),
+        's_tree': (tree['agraph_dec'][xid], n_tree, 1),
+        'u_atom': (g_bgraph[plan['gstep_mess']].reshape(
+            T, -1, g_bgraph.shape[1]), n_gmess, g_bgraph.shape[1]),
+        'u_inter': (tree['bgraph'][plan['mess']], n_mess, 1),
+        'u_tree': (tree['bgraph_dec'][plan['mess']], n_tree, 1),
+    }
+    for name, (tables, n_src, k) in sites.items():
+        plan[name] = np.ascontiguousarray(tables, dtype=np.int32)
+        plan[name + '_t'], plan[name + '_tm'] = step_transposes(
+            plan[name], n_src, k)
+    return dict(batch, tree=tree, graph=graph, plan=plan)
 
 
 def level_to_dict(lv: LevelTensors) -> Dict[str, np.ndarray]:

@@ -27,6 +27,8 @@ checkpoint's serve path gives them: the encode of the first 64 in-vocab
 HOPV molecules (the five readouts, and the depth loop's gather at the atom
 level and at the tree level) and one step of the exact decode of the
 first 16 (its five frontier sums), each line as ``measure`` gives it.
+``hier_train_cases``, the new calls of a hier training step, are
+measured by ``chip_smoke.py``.
 
 ``transpose_sum`` cases (``transpose_cases``): the four of the first HOPV
 training batch (the depth loop's gather backward and three readout
@@ -554,6 +556,91 @@ def train_cases(batch: dict, gen: torch.Generator, hidden: int = 250
         library=lambda: library_nei_sum(h, fr),
         bytes=nei_sum_bytes(h, fr), ops=nei_sum_ops(h, fr)))
     return cases
+
+
+# the sums of a hier training step (HierMPNEncoder.forward's five readouts,
+# HierDecoder.forward's five per-step sums), each with the JAX line it
+# ports and its table in a ``data.batching.hier_train_tables`` batch:
+# (level, table, transpose key, state rows: level and key of its count)
+HIER_TRAIN_SITES = (
+    ('enc-atom', 'ggpm_tpu/models/encoder.py:48 (graph level)'),
+    ('enc-cluster', 'ggpm_tpu/models/encoder.py:194'),
+    ('enc-inter', 'ggpm_tpu/models/encoder.py:48 (inter level)'),
+    ('enc-tree', 'ggpm_tpu/models/encoder.py:48 (tree level)'),
+    ('enc-root', 'ggpm_tpu/models/encoder.py:216'),
+    ('dec-atom', 'ggpm_tpu/models/hier_decoder.py:191'),
+    ('dec-cluster-src', 'ggpm_tpu/models/hier_decoder.py:197'),
+    ('dec-cluster-x', 'ggpm_tpu/models/hier_decoder.py:204'),
+    ('dec-inter', 'ggpm_tpu/models/hier_decoder.py:208'),
+    ('dec-tree', 'ggpm_tpu/models/hier_decoder.py:222'))
+# the decoder's per-step tables of a site, and the step whose are timed
+HIER_TRAIN_PLAN = {'dec-atom': 's_atom', 'dec-cluster-src': 's_clu_src',
+                   'dec-cluster-x': 's_clu_x', 'dec-inter': 's_inter',
+                   'dec-tree': 's_tree'}
+HIER_TRAIN_STEP = 20
+
+
+def hier_train_site(batch: dict, site: str, step: int = HIER_TRAIN_STEP):
+    """A hier training site's ``(rows, graph, t_idx, t_mask)`` in a device
+    batch of ``hier_train_tables``: the state rows its sum reads, its
+    table and the table's transpose (a decoder site's at ``step``)."""
+    tree, graph, plan = batch['tree'], batch['graph'], batch['plan']
+    n_mess = tree['fmess'].shape[0]
+    if site in HIER_TRAIN_PLAN:
+        key = HIER_TRAIN_PLAN[site]
+        return (plan[key + '_t'].shape[1], plan[key][step],
+                plan[key + '_t'][step], plan[key + '_tm'][step])
+    level, key, rows = {
+        'enc-atom': (graph, 'agraph', graph['fmess'].shape[0]),
+        'enc-cluster': (tree, 'cgraph', graph['fnode'].shape[0]),
+        'enc-inter': (tree, 'agraph', n_mess),
+        'enc-tree': (tree, 'agraph', n_mess),
+        'enc-root': (tree, 'root', n_mess)}[site]
+    table = tree['agraph'][tree['scope'][:, 0].long()].contiguous() \
+        if site == 'enc-root' else level[key]
+    return rows, table, level[key + '_t'], level[key + '_tm']
+
+
+def hier_train_cases(batch: dict, gen: torch.Generator, hidden: int = 250,
+                     step: int = HIER_TRAIN_STEP) -> List[dict]:
+    """The new kernel calls of a hier training step on a device batch
+    (``Trainer.device_batch`` of the hier family): ``nei_sum`` at each of
+    ``HIER_TRAIN_SITES`` (the decoder's at scan step ``step``) and
+    ``transpose_sum`` at the transpose of each the step launches (every
+    site but the motif level's node readout, which the loss does not
+    read; it shares the attachment level's table), at width ``hidden``;
+    the atom level's depth-loop gather (``gather_rows`` at 3H over the
+    atom ``bgraph``) and the scan's atom-level message-update gather (at
+    H over ``plan['u_atom']`` at ``step``), each with its backward.
+    Cases of ``measure``, named ``hier-train-<site>`` and ``…-bwd``;
+    values from ``gen``."""
+    H = hidden
+    dev = gen.device
+    cases, bwd = [], []
+    for site, _ in HIER_TRAIN_SITES:
+        rows, table, t_idx, t_mask = hier_train_site(batch, site, step)
+        cases.append(nei_sum_case(f'hier-train-{site}',
+                                  random_table(gen, rows, H), table))
+        if site != 'enc-tree':
+            g = torch.rand((table.shape[0], H), generator=gen,
+                           device=dev) * 2 - 1
+            bwd.append(transpose_case(f'hier-train-{site}-bwd', g, t_idx,
+                                      t_mask, table.shape[1]))
+    graph, plan = batch['graph'], batch['plan']
+    update = plan['u_atom'][step]
+    for name, table, t_idx, t_mask, width in (
+            ('atom-gather', graph['bgraph'], graph['bgraph_t'],
+             graph['bgraph_tm'], 3 * H),
+            ('atom-update', update, plan['u_atom_t'][step],
+             plan['u_atom_tm'][step], H)):
+        cases.append(gather_rows_case(
+            f'hier-train-{name}', random_table(gen, t_idx.shape[0], width),
+            table))
+        g = torch.rand((table.numel(), width), generator=gen,
+                       device=dev) * 2 - 1
+        bwd.append(transpose_case(f'hier-train-{name}-bwd', g, t_idx,
+                                  t_mask, 1))
+    return cases + bwd
 
 
 def transpose_case(name: str, g: torch.Tensor, t_idx: torch.Tensor,

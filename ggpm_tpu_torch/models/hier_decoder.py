@@ -1,9 +1,16 @@
-"""Hierarchical (3-level) decoder: its parameters and the exact decode's
-steps (counterpart of ``ggpm_tpu/models/hier_decoder.py``: ``HierDecoder``'s
-modules, ``_sparse_direct``, ``hdec_init``, ``hdec_graph_update``,
-``hdec_topo``, ``hdec_mess_update``, ``hdec_cls``, ``hdec_step_fused`` and
-``hdec_assm``).  The teacher-forced training forward and the turbo decode's
-propose loop are ROADMAP A5's rest.
+"""Hierarchical (3-level) decoder: its parameters, the teacher-forced
+training forward and the exact decode's steps (counterpart of
+``ggpm_tpu/models/hier_decoder.py``: ``HierDecoder``'s modules and
+``__call__`` with its losses, ``_sparse_direct``, ``hdec_init``,
+``hdec_graph_update``, ``hdec_topo``, ``hdec_mess_update``, ``hdec_cls``,
+``hdec_step_fused`` and ``hdec_assm``).  The turbo decode's propose loop
+is ROADMAP A5's rest.
+
+Training: ``forward`` runs the scan step by step, each state written out
+of place for autograd; its five sums a step go through ``nei_sum_t`` and
+its message updates' neighbour gathers through ``gather_nd_t``, each with
+the step's own table and transpose (``data.batching.hier_train_tables``),
+so their backward is the kernels' transpose.
 
 The decode state is ``(tree, inter, graph, hatom, hinter_node)``: the tree
 and attachment levels' LSTM message states over the junction tree's edge
@@ -21,31 +28,29 @@ launches a fused step.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..graph.mol_graph import MAX_POS
-from ..ops import nei_sum
+from ..ops import gather_nd_t, nei_sum, nei_sum_t
 from .decode import hier_topk
-from .decoder import PredictionMLP
-from .encoder import pos_onehot
+from .decoder import PredictionMLP, _ce
+from .encoder import dropout, pos_onehot
 from .rnn import MPNLSTMCell
 
 Level = Tuple[torch.Tensor, torch.Tensor]
 State = Tuple[Level, Level, Level, torch.Tensor, torch.Tensor]
 
 
-def scatter_rows_(buf: torch.Tensor, rows: torch.Tensor,
-                  values: torch.Tensor) -> None:
-    """``buf[rows] = values`` in place, for ``rows`` [R] and ``values``
-    [R, ...] whose lanes at row 0 hold zeros.  On the card ``index_put_``
-    keeps one arbitrary writer of a row that appears twice, so that is sound
-    only where every writer of a row writes the same values: row 0, and
-    rows whose inputs coincide.  The CPU checks it."""
-    rows = rows.long()
+def _check_writers(buf: torch.Tensor, rows: torch.Tensor,
+                   values: torch.Tensor) -> None:
+    """On the CPU, raise if two writers of one row of ``buf`` write
+    different values: ``index_put`` keeps one arbitrary writer of a
+    repeated row on the card, which is sound only where they agree (row 0,
+    written with zeros, and rows whose inputs coincide)."""
     if buf.device.type == 'cpu' and rows.numel() > 1:
         order = torch.argsort(rows, stable=True)
         r, v = rows[order], values[order]
@@ -55,7 +60,24 @@ def scatter_rows_(buf: torch.Tensor, rows: torch.Tensor,
             raise AssertionError(
                 'duplicate rows written with different values: '
                 f'{sorted(set(r[dup[differ]].tolist()))}')
+
+
+def scatter_rows_(buf: torch.Tensor, rows: torch.Tensor,
+                  values: torch.Tensor) -> None:
+    """``buf[rows] = values`` in place, for ``rows`` [R] and ``values``
+    [R, ...] whose lanes at row 0 hold zeros (``_check_writers``)."""
+    rows = rows.long()
+    _check_writers(buf, rows, values)
     buf.index_put_((rows,), values)
+
+
+def put_rows(buf: torch.Tensor, rows: torch.Tensor,
+             values: torch.Tensor) -> torch.Tensor:
+    """``buf`` with ``values`` written at ``rows``, out of place (JAX
+    ``buf.at[rows].set(values)``), under ``scatter_rows_``'s rule."""
+    rows = rows.long()
+    _check_writers(buf, rows, values)
+    return buf.index_put((rows,), values)
 
 
 class HierDecoder(nn.Module):
@@ -75,6 +97,7 @@ class HierDecoder(nn.Module):
         self.atom_vocab_size = atom_vocab_size
         self.diterT = diterT
         self.diterG = diterG
+        self.drop = dropout(dropout_rate)
         # three incremental levels (reference IncHierMPNEncoder)
         self.tree_rnn = MPNLSTMCell(h + MAX_POS, h, diterT)
         self.inter_rnn = MPNLSTMCell(h + MAX_POS, h, diterT)
@@ -120,6 +143,229 @@ class HierDecoder(nn.Module):
             for s, nr in zip(state, new):
                 scatter_rows_(s, rows, torch.where(valid, nr, 0.0))
         return state
+
+    # -- teacher-forced training loss (JAX hier_decoder.py:109-346) --------
+    @staticmethod
+    def _sparse_update(rnn: MPNLSTMCell, weights, state: Level,
+                       rows: torch.Tensor, x: torch.Tensor, tables,
+                       n_iter: int) -> Level:
+        """``_sparse_direct`` out of place (JAX ``sparse_update``), for
+        autograd: ``n_iter`` cell applications to ``rows`` with inputs
+        ``x``, each round's rows written into a new state, invalid lanes
+        writing zeros to row 0; ``weights`` the cell's ``(x_weights,
+        k_h())``, taken once a scan.  The neighbour rows are gathered by
+        ``gather_nd_t`` over ``tables = (bg_rows, t_idx, t_mask)``, the
+        step's predecessor-row table and its transpose, so the gather's
+        backward is the kernel's transpose, which leaves row 0 out: plain
+        indexing's backward sorts the indices, and the many padding lanes
+        reading row 0 serialise it."""
+        valid = (rows > 0)[:, None]
+        xw, ks = weights
+        xp = rnn.x_proj(x, xw)
+        for _ in range(n_iter):
+            new = rnn.step(xp, tuple(gather_nd_t(s, *tables) for s in state),
+                           ks)
+            state = tuple(put_rows(s, rows, torch.where(valid, nr, 0.0))
+                          for s, nr in zip(state, new))
+        return state
+
+    def forward(self, tree: Dict[str, torch.Tensor],
+                graph: Dict[str, torch.Tensor], plan: Dict[str, torch.Tensor],
+                root_vecs: torch.Tensor, vocab_mask: torch.Tensor):
+        """(loss, metrics) of a batch whose ``plan`` carries the scan's
+        per-step tables and transposes (``data.batching.hier_train_tables``).
+
+        The scan carries the three levels' message states and the atom and
+        attachment node hiddens, each written out of place as JAX's
+        ``.at[rows].set`` writes them, row 0 only with zeros.  Each step
+        refreshes the atoms of the previous step's cluster (``diterG``
+        rounds over its bonds, then the atom readout), embeds the frontier
+        at the attachment and motif levels (``diterT`` rounds each) and
+        scores the assembly candidates against the current atom hiddens.
+        Its five sums read the step's own state through ``nei_sum_t`` with
+        the step's table, whose backward is the kernel's transpose, as is
+        that of its message updates' gathers: the tables leave row 0 out,
+        which is exact here because every state's row 0 is a constant zero
+        (zeros at the start, zeros written)."""
+        E_c, E_i = self._embed
+        fnode, fmess = tree['fnode'], tree['fmess']
+        num_mess = fmess.shape[0]
+        H = self.hidden_size
+
+        init_vecs = self.root_vecs_to_hidden(root_vecs)
+        ec_emb = self.drop(E_c(fnode[:, 0]))
+        ei_emb = self.drop(E_i(fnode[:, 1]))
+        gfnode, gfmess = graph['fnode'], graph['fmess']
+        g_mess_in = self._g_mess_input(gfnode[gfmess[:, 0].long()],
+                                       gfmess[:, 2], gfmess[:, 3])
+        pos_tab = pos_onehot(fmess[:, 2])
+
+        dev = root_vecs.device
+        tree_s = (torch.cat([init_vecs.new_zeros((num_mess, H)), init_vecs]),
+                  init_vecs.new_zeros((num_mess + init_vecs.shape[0], H)))
+        inter_s = self.inter_rnn.init_state(num_mess, dev)
+        graph_s = self.graph_rnn.init_state(gfmess.shape[0], dev)
+        hatom = torch.zeros((gfnode.shape[0], H), device=dev)
+        hinter_node = torch.zeros((fnode.shape[0], H), device=dev)
+
+        def site(name, t):
+            return tuple(plan[name + sfx][t] for sfx in ('', '_t', '_tm'))
+
+        # each step's inputs that the state does not change, for all T
+        # steps at once (``unbind`` where they need a gradient: its
+        # backward stacks the steps' gradients in one op): its messages'
+        # and nodes' embeddings, positions and atom features, the
+        # candidates' attachment embeddings (no dropout, JAX :229) and
+        # anchor masks, and the cells' weights
+        mess, xid = plan['mess'].long(), plan['xid'].long()
+        T = mess.shape[0]
+        src_all = fmess[:, 0].long()[mess]
+        ec_src, ei_src, ec_x, ei_x = (
+            emb[idx].unbind(0) for emb, idx in ((ec_emb, src_all),
+                                                 (ei_emb, src_all),
+                                                 (ec_emb, xid), (ei_emb, xid)))
+        pos_rows = pos_tab[mess]
+        gstep_mess = plan['gstep_mess'].long().reshape(T, -1)
+        gstep_nodes = plan['gstep_nodes'].long().reshape(T, -1)
+        g_x = g_mess_in[gstep_mess]
+        g_node_oh = self._atom_onehot(gfnode[gstep_nodes])
+        cands = plan['assm_cands'].long()
+        icls_e = E_i(plan['assm_icls']).unbind(0)
+        pos_e = pos_onehot(plan['assm_nth'])[:, :, None, None].expand(
+            *cands.shape[:4], -1)
+        k_mask = (torch.arange(2, device=dev) <
+                  plan['assm_n_icls'][..., None])[:, :, None, :, None]
+        cand_ok = plan['assm_cand_ok'][..., None]
+        w_graph, w_inter, w_tree = (
+            (rnn.x_weights(n_in), rnn.k_h()) for rnn, n_in in (
+                (self.graph_rnn, g_mess_in.shape[-1]),
+                (self.inter_rnn, H + MAX_POS), (self.tree_rnn, H + MAX_POS)))
+        topo_vecs, cls_vecs, cand_scores = [], [], []
+        for t in range(T):
+            rows, x_nodes, src = mess[t], xid[t], src_all[t]
+            # 1. atom level: the cluster unmasked at the previous step
+            gr, gn = gstep_mess[t], gstep_nodes[t]
+            graph_s = self._sparse_update(
+                self.graph_rnn, w_graph, graph_s, gr, g_x[t],
+                site('u_atom', t), self.diterG)
+            g_node_h = F.relu(self.W_graph_node(torch.cat(
+                [g_node_oh[t], nei_sum_t(graph_s[0], *site('s_atom', t))],
+                dim=-1)))
+            hatom = put_rows(hatom, gn,
+                             torch.where((gn > 0)[:, None], g_node_h, 0.0))
+
+            # 2. attachment level
+            hclu = nei_sum_t(hatom, *site('s_clu_src', t))
+            x_i = torch.cat([F.relu(self.W_i(torch.cat([ei_src[t], hclu],
+                                                       dim=-1))),
+                             pos_rows[t]], dim=-1)
+            inter_s = self._sparse_update(
+                self.inter_rnn, w_inter, inter_s, rows, x_i,
+                site('u_inter', t), self.diterT)
+            hclu_x = nei_sum_t(hatom, *site('s_clu_x', t))
+            inter_embed_x = F.relu(self.W_i(torch.cat([ei_x[t], hclu_x],
+                                                      dim=-1)))
+            inter_node_h = F.relu(self.W_inter_node(torch.cat(
+                [inter_embed_x, nei_sum_t(inter_s[0], *site('s_inter', t))],
+                dim=-1)))
+            hinter_node = put_rows(
+                hinter_node, x_nodes,
+                torch.where((x_nodes > 0)[:, None], inter_node_h, 0.0))
+
+            # 3. motif level
+            x_t = torch.cat([F.relu(self.W_c(torch.cat(
+                [ec_src[t], hinter_node[src]], dim=-1))), pos_rows[t]],
+                dim=-1)
+            tree_s = self._sparse_update(
+                self.tree_rnn, w_tree, tree_s, rows, x_t,
+                site('u_tree', t), self.diterT)
+            tree_embed_x = F.relu(self.W_c(torch.cat(
+                [ec_x[t], hinter_node[x_nodes]], dim=-1)))
+            topo_vecs.append(F.relu(self.W_tree_node(torch.cat(
+                [tree_embed_x, nei_sum_t(tree_s[0], *site('s_tree', t))],
+                dim=-1))))
+            cls_vecs.append(tree_s[0][rows])
+
+            # 4. assembly candidates: matchNN([hatom, E_i(icls), pos])
+            # summed over the anchor pair (reference enum_attach)
+            cand_h = hatom[cands[t]]                          # [B, C, 2, H]
+            mvec = F.relu(self.matchNN(torch.cat(
+                [cand_h, icls_e[t][:, None].expand(*cand_h.shape[:3], -1),
+                 pos_e[t]], dim=-1)))
+            cand_vecs = (mvec * k_mask[t]).sum(2) * cand_ok[t]
+            cand_scores.append((self.W_assm(cand_vecs) *
+                                root_vecs[:, None, :]).sum(-1))
+        return self._losses(plan, root_vecs, init_vecs, vocab_mask,
+                            torch.stack(topo_vecs), torch.stack(cls_vecs),
+                            torch.stack(cand_scores))
+
+    def _losses(self, plan, root_vecs, init_vecs, vocab_mask, topo_vecs,
+                cls_vecs, cand_scores):
+        """Topology BCE, motif and attachment cross-entropies (the
+        attachment logits masked by the additive vocab mask) and the
+        assembly cross-entropy over the real candidate slots and
+        ``max_cls_size − nc`` zero-vector pad slots (score ``W_assm(0)·z``),
+        summed and divided by the batch size, with the accuracies (JAX
+        hier_decoder.py:262-346).  Nothing is read on the host."""
+        batch_size = root_vecs.shape[0]
+        T = topo_vecs.shape[0]
+        latent_b = root_vecs[None].expand(T, batch_size, -1)
+        active = plan['active']
+
+        topo_logits = self.topoNN(torch.cat([topo_vecs, latent_b],
+                                            dim=-1))[..., 0]
+        tlab = plan['tlab'].float()
+        topo_bce = torch.clamp(topo_logits, min=0) - topo_logits * tlab + \
+            torch.log1p(torch.exp(-torch.abs(topo_logits)))
+        topo_loss = (topo_bce * active.float()).sum()
+        topo_acc = (((topo_logits >= 0).long() == plan['tlab'].long())
+                    * active).sum() / torch.clamp(active.sum(), min=1)
+
+        def heads(vec, ctx):
+            x = torch.cat([vec, ctx], dim=-1)
+            return self.clsNN(x), self.iclsNN(x)
+
+        root_clab, root_ilab = plan['root_clab'].long(), plan['root_ilab'].long()
+        clab, ilab = plan['clab'].long(), plan['ilab'].long()
+        root_cls, root_icls = heads(init_vecs, root_vecs)
+        step_cls, step_icls = heads(cls_vecs, latent_b)
+        root_icls = root_icls + vocab_mask[root_clab]
+        step_icls = step_icls + vocab_mask[clab]
+        has_cls = plan['has_cls'].float()
+        cls_loss = _ce(root_cls, root_clab).sum() + \
+            (_ce(step_cls, clab) * has_cls).sum()
+        icls_loss = _ce(root_icls, root_ilab).sum() + \
+            (_ce(step_icls, ilab) * has_cls).sum()
+        n_cls = batch_size + has_cls.sum()
+        cls_acc = ((root_cls.argmax(-1) == root_clab).sum() +
+                   ((step_cls.argmax(-1) == clab) * has_cls).sum()) / n_cls
+        icls_acc = ((root_icls.argmax(-1) == root_ilab).sum() +
+                    ((step_icls.argmax(-1) == ilab) * has_cls).sum()) / n_cls
+
+        p_score = (self.W_assm.bias * root_vecs).sum(-1)[None, :]   # [1, B]
+        ok = plan['assm_cand_ok']
+        nc = plan['assm_nc'].float()
+        maxc = plan['max_cls_size'].float()
+        neg = torch.finfo(torch.float32).min / 4
+        masked = torch.where(ok, cand_scores, neg)
+        m = torch.maximum(masked.max(-1).values, p_score)
+        real_sum = (torch.exp(masked - m[..., None]) * ok).sum(-1)
+        lse = torch.log(real_sum + torch.clamp(maxc - nc, min=0.0) *
+                        torch.exp(p_score - m) + 1e-12) + m
+        gold = cand_scores[..., 0]
+        has_assm = plan['has_assm'].float()
+        assm_loss = ((lse - gold) * has_assm).sum()
+        best = torch.maximum(masked.max(-1).values,
+                             torch.where(nc >= maxc, neg, p_score))
+        n_assm = has_assm.sum()
+        assm_acc = torch.where(
+            n_assm > 0,
+            ((gold >= best) * has_assm).sum() / torch.clamp(n_assm, min=1),
+            torch.ones_like(n_assm))
+
+        loss = (topo_loss + cls_loss + icls_loss + assm_loss) / batch_size
+        return loss, {'Word': cls_acc, 'I-Word': icls_acc, 'Topo': topo_acc,
+                      'Assm': assm_acc}
 
     # -- the decode steps (JAX hier_decoder.py:413-570) --------------------
     def hdec_init(self, n_tree_rows: int, n_graph_rows: int, n_gnodes: int,

@@ -63,13 +63,19 @@ class MPNLSTMCell(nn.Module):
 
     # -- split-step API for the teacher-forced decoder scan (reference
     # rnn.py:228-266): the same math as ``cell`` --------------------------
-    def x_proj(self, x: torch.Tensor) -> torch.Tensor:
+    def x_weights(self, in_dim: int):
+        """``x_proj``'s x-side kernels with their biases, for inputs of
+        ``in_dim`` features.  A loop that projects new inputs each
+        iteration takes them once, so that the slices' backward runs once
+        (for a sum of the iterations' gradients)."""
+        return [(m.weight[:, :in_dim], m.bias)
+                for m in (self.W_i, self.W_o, self.W, self.W_f)]
+
+    def x_proj(self, x: torch.Tensor, xw=None) -> torch.Tensor:
         """Loop-invariant gate terms xi | xo | xu | xf ([..., 4H]), biases
-        included."""
-        in_dim = x.shape[-1]
-        return torch.cat([F.linear(x, m.weight[:, :in_dim], m.bias)
-                          for m in (self.W_i, self.W_o, self.W, self.W_f)],
-                         dim=-1)
+        included; ``xw`` from ``x_weights``, else taken here."""
+        xw = self.x_weights(x.shape[-1]) if xw is None else xw
+        return torch.cat([F.linear(x, w, b) for w, b in xw], dim=-1)
 
     def k_h(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """h-side kernels: (K_iou stacked [H, 3H], kf [H, H])."""

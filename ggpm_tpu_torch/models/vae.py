@@ -1,6 +1,6 @@
 """The VAE models (counterpart of ``ggpm_tpu/models/vae.py``:
 ``ModelConfig``, ``PropertyVAE`` and ``PropOptVAE`` with their training
-forwards, ``HierPropertyVAE`` and ``HierPropOptVAE`` for serving), and
+forwards, ``HierPropertyVAE`` and ``HierPropOptVAE`` with theirs), and
 ``init_params``, flax's default initialisers.
 
 Reference: ggpm/property_vae.py (PropertyVAE, PropOptVAE, HierPropertyVAE,
@@ -169,6 +169,20 @@ class PropertyVAE(nn.Module):
         return total, metrics, {'clipped': False}
 
 
+def _circuit_breaker(total: torch.Tensor, clip_eps, generator):
+    """The negative-loss circuit breaker: a total at or below zero becomes
+    ``0.5 + 0.5 · clip_eps``, ``clip_eps`` a standard normal scalar drawn
+    from ``generator`` when not given, and 0 when neither is (the JAX
+    model's ``rng=None``).  Returns the total and the condition as a device
+    bool."""
+    if clip_eps is None:
+        clip_eps = (torch.zeros((), device=total.device)
+                    if generator is None else
+                    torch.randn((), generator=generator, device=total.device))
+    clipped = total <= 0
+    return torch.where(clipped, 0.5 + 0.5 * clip_eps, total), clipped.detach()
+
+
 class PropOptVAE(nn.Module):
     """Motif VAE + HOMO/LUMO property heads on the split latent (reference
     property_vae.py:257-394; registry name ``prop-opt``), with the learned
@@ -233,29 +247,19 @@ class PropOptVAE(nn.Module):
             recon_loss, homo_loss, lumo_loss = self.loss_weigh(
                 recon_loss, homo_loss, lumo_loss)
         total = recon_loss + homo_loss + lumo_loss
-        if clip_eps is None:
-            clip_eps = (torch.zeros((), device=total.device)
-                        if generator is None else
-                        torch.randn((), generator=generator,
-                                    device=total.device))
-        clipped = total <= 0
-        total = torch.where(clipped, 0.5 + 0.5 * clip_eps, total)
+        total, clipped = _circuit_breaker(total, clip_eps, generator)
         metrics = dict(metrics, Loss=total, KL=kl, Recs_Loss=recon_loss,
                        HOMO_MSE=homo_loss, LUMO_MSE=lumo_loss)
-        return total, metrics, {'clipped': clipped.detach()}
-
-
-def _no_hier_training(name: str):
-    raise NotImplementedError(
-        f'{name}.forward: the port serves the hier family; its training '
-        f'forward (HierDecoder.__call__ and the losses) is ROADMAP A5')
+        return total, metrics, {'clipped': clipped}
 
 
 class HierPropertyVAE(nn.Module):
     """Hierarchical (3-level) VAE (reference property_vae.py:11-62;
     registry name ``hier-prop``): ``HierMPNEncoder``, the posterior heads
     and ``HierDecoder``, with the embeddings tied between encoder and
-    decoder.  It serves (encode, decode); training it is ROADMAP A5."""
+    decoder.  ``is_hier``: its batches keep their plans unpacked and carry
+    ``data.batching.hier_train_tables`` (JAX ``is_hier``)."""
+    is_hier = True
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -283,14 +287,39 @@ class HierPropertyVAE(nn.Module):
         root, _, _, _ = self.encoder(tree, graph)
         return self.rsample(root, eps)
 
-    def forward(self, *args, **kwargs):
-        _no_hier_training(type(self).__name__)
+    def latent(self, batch: Dict[str, Any], eps, perturb_z, generator):
+        """The encoder's root vectors of a batch sampled as
+        ``PropertyVAE.forward`` samples them: ``(z, kl)``."""
+        root, _, _, _ = self.encoder(batch['tree'], batch['graph'])
+        if perturb_z and eps is None:
+            eps = torch.randn((root.shape[0], self.cfg.latent_size),
+                              generator=generator, device=root.device)
+        return self.rsample(root, eps if perturb_z else None)
+
+    def forward(self, batch: Dict[str, Any], beta: float,
+                eps: Optional[torch.Tensor] = None, perturb_z: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """The training loss of a device batch (``train.loop.to_device`` of
+        a ``data.batching.hier_train_tables`` dict): ``(total, metrics,
+        aux)`` with ``total = decoder loss + beta · KL`` (JAX vae.py:
+        314-332), the latent sampled as ``PropertyVAE.forward`` samples
+        it."""
+        z, kl = self.latent(batch, eps, perturb_z, generator)
+        loss, metrics = self.decoder(batch['tree'], batch['graph'],
+                                     batch['plan'], z, batch['vocab_mask'])
+        total = loss + beta * kl
+        metrics = dict(metrics, Loss=total, KL=kl)
+        return total, metrics, {'clipped': False}
 
 
 class HierPropOptVAE(nn.Module):
     """Hierarchical VAE + HOMO/LUMO heads on the split latent (reference
     property_vae.py:130-254; registry name ``hier-prop-opt``).  The JAX
-    package nests the VAE under ``hier/`` beside ``property_optim/``."""
+    package nests the VAE under ``hier/`` beside ``property_optim/``.
+
+    Reference quirk kept (JAX vae.py:339-341, 396): the fine-tuning total
+    leaves β·KL out; KL is reported, not added."""
+    is_hier = True
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -312,6 +341,28 @@ class HierPropOptVAE(nn.Module):
         return self.hier.encode_latent(tree, eps, graph=graph)
 
     predict_properties = PropOptVAE.predict_properties
+    property_loss = PropOptVAE.property_loss
 
-    def forward(self, *args, **kwargs):
-        _no_hier_training(type(self).__name__)
+    def forward(self, batch: Dict[str, Any], beta: float,
+                eps: Optional[torch.Tensor] = None, perturb_z: bool = True,
+                generator: Optional[torch.Generator] = None,
+                clip_eps: Optional[torch.Tensor] = None):
+        """The fine-tuning loss of a device batch that carries ``homos``
+        and ``lumos``, as ``PropOptVAE.forward`` computes it (loss scaling,
+        the circuit breaker and its ``clip_eps``) but for the total,
+        ``decoder loss + HOMO MSE + LUMO MSE`` without β·KL (JAX vae.py:
+        374-405); ``beta`` is not read."""
+        z, kl = self.hier.latent(batch, eps, perturb_z, generator)
+        homo_loss, lumo_loss, _, _ = self.property_loss(
+            z, batch['homos'], batch['lumos'])
+        recon_loss, metrics = self.hier.decoder(
+            batch['tree'], batch['graph'], batch['plan'], z,
+            batch['vocab_mask'])
+        if self.cfg.loss_scaling:
+            recon_loss, homo_loss, lumo_loss = self.loss_weigh(
+                recon_loss, homo_loss, lumo_loss)
+        total = recon_loss + homo_loss + lumo_loss
+        total, clipped = _circuit_breaker(total, clip_eps, generator)
+        metrics = dict(metrics, Loss=total, KL=kl, Recs_Loss=recon_loss,
+                       HOMO_MSE=homo_loss, LUMO_MSE=lumo_loss)
+        return total, metrics, {'clipped': clipped}

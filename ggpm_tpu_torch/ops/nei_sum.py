@@ -362,6 +362,8 @@ def nei_sum_t(h: torch.Tensor, graph: torch.Tensor, t_idx: torch.Tensor,
     the ``zero_row0`` that made it (whose backward kills it) or into a
     constant zero buffer.  The node and root readouts of the encoder read
     the depth loop's ``h``, zeroed by ``zero_row0`` every round; the
-    decoder's teacher-forced readout reads its message state, whose row 0
-    starts as a constant zero and is written only with zeros."""
+    decoder's teacher-forced readout reads its message state, and the hier
+    scan's five sums a step read its states and node hiddens, each of
+    whose row 0 starts as a constant zero and is written only with
+    zeros."""
     return _NeiSumT.apply(h, graph, t_idx, t_mask)

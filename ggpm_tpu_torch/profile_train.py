@@ -24,8 +24,9 @@ the device, so the share may read higher than an unprofiled epoch's);
 launches per step, in all and per kernel (B1 ``nei_sum``, its transpose
 ``transpose_sum``, the row gather ``gather_rows``); through graphs, the
 graphs captured, their capture seconds and pools, and the replayed steps
-alone.  Prints one JSON object (and writes it to ``--out``).  Needs a
-CUDA device; it has no CPU mode.
+alone, and the peak memory.  Prints one JSON object (and writes it to
+``--out``).  Needs a CUDA device; it has no CPU mode.  ``hier_trainer``
+gives the hier family's step, which chip_smoke.py profiles alike.
 """
 
 from __future__ import annotations
@@ -39,19 +40,23 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .bridge import flatten, load_model, load_prop_model, to_flax_tree
+from .bridge import (HIER_TRAINED, flatten, load_flax_params, load_model,
+                     load_prop_model, read_checkpoint, to_flax_tree)
 from .data.batching import pad_batch
 from .data.dataset import prune_to_vocab, read_csv_data
 from .graph.mol_graph import MolGraphBatch, tensorize
 from .graph.vocab import PairVocab, common_atom_vocab, load_vocab_file
+from .models.vae import (HierPropertyVAE, HierPropOptVAE, ModelConfig,
+                         init_params)
 from .ops import gather_rows, nei_sum, transpose_sum
-from .profile_serve import _device_us, kernel_of, profiled, top_kernels
+from .profile_serve import (HIER_CKPT, HIER_VOCAB, _device_us, kernel_of,
+                            profiled, top_kernels)
 from .train.loop import Trainer, flushes, signature
 from .train.optim import (default_group_fn, make_multi_optimizer,
                           make_optimizer)
 
-__all__ = ['golden_steps', 'check_golden', 'finetune_trainer', 'hopv_batches',
-           'hopv_rows', 'load_vocab_file', 'main']
+__all__ = ['golden_steps', 'check_golden', 'finetune_trainer', 'hier_trainer',
+           'hopv_batches', 'hopv_rows', 'load_vocab_file', 'main']
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(_ROOT, 'runs', 'QUALITY_hopv.json.ckpt')
@@ -106,6 +111,30 @@ ACCURACIES = ('Word', 'I-Word', 'Topo', 'Assm')
 PROPERTY_KEYS = ('HOMO_MSE', 'LUMO_MSE')
 PROPERTY_ATOL = 2e-7
 FINETUNE_LATER_UPDATE_RTOL = 5e-3
+# The hier goldens (goldens/train_hier_hopv.json, train_hier_propopt_hopv
+# .json) are held by the same rule but for the assembly accuracy, held
+# within HIER_ASSM_ATOL: 3 of a step's 100 to 160 assembly events.  Where
+# a molecule is symmetric, candidates on symmetric atoms score exactly the
+# gold's score in the port (3 of the 154 events of step 1 on the CPU), and
+# XLA's reductions break such a tie by an ulp either way: the JAX package
+# counts one of the three wrong (Assm 0.99351 against the port's 1.0).
+# Between the port and the JAX package, both on the CPU, the hier-prop
+# steps meet the rest of the rule: Loss within 1.0e-5, GNorm within
+# 4.1e-5, the held updates within 1.3e-4.  The hier-prop-opt golden's
+# property losses are held within RTOL relative, not PROPERTY_ATOL: its
+# heads are untrained (HEADS_SEED), so the losses are about 0.15, not 2e-4,
+# and on the CPU they differ by up to 3.3e-7 (2.2e-6 relative, step 3's
+# HOMO); the rest as the prop-opt golden (group norms within 1.9e-5, held
+# updates within 7.3e-5).  Fixed before any card run.
+HIER_ASSM_ATOL = 0.02
+
+
+def hier_rule(finetune: bool = False) -> dict:
+    """``check_golden``'s arguments for a hier golden (above)."""
+    return dict(later_update_rtol=FINETUNE_LATER_UPDATE_RTOL if finetune
+                else UPDATE_RTOL, assm_atol=HIER_ASSM_ATOL,
+                property_rtol=RTOL)
+
 
 # the kernels of a training step: wrapper, what it counts
 KERNELS = {'nei_sum': nei_sum, 'transpose_sum': transpose_sum,
@@ -154,6 +183,52 @@ def finetune_trainer(device: str) -> Tuple[Trainer, PairVocab]:
     return trainer, vocab
 
 
+# the hier family's steps (chip_smoke.py's hier train phase): the trained
+# hier-prop checkpoint at its configuration (scripts/quality_run.py:135-140),
+# OPTIMIZER and BETA as above; hier-prop-opt takes the checkpoint's weights
+# under hier/ and property heads initialised from a generator seeded with
+# HEADS_SEED (no trained hier-prop-opt checkpoint exists), with one Adam a
+# group at FINETUNE_LRS
+HEADS_SEED = 0
+
+
+def hier_model(finetune: bool = False, vocab: Optional[PairVocab] = None):
+    """The ``hier-prop`` model of the trained hier checkpoint or, with
+    ``finetune``, ``hier-prop-opt`` with that model under ``hier/`` and
+    property heads from ``init_params`` seeded with ``HEADS_SEED``; on the
+    CPU, with its vocab."""
+    vocab = vocab or load_vocab_file(HIER_VOCAB)
+    hv, iv = vocab.size()
+    cfg = ModelConfig(hvocab_size=hv, ivocab_size=iv, **HIER_TRAINED)
+    tree = read_checkpoint(HIER_CKPT)
+    if not finetune:
+        model = HierPropertyVAE(cfg)
+        load_flax_params(model, tree)
+        return model, vocab
+    model = init_params(HierPropOptVAE(cfg),
+                        torch.Generator().manual_seed(HEADS_SEED))
+    load_flax_params(model.hier, tree)
+    return model, vocab
+
+
+def hier_trainer(device: str, finetune: bool = False,
+                 vocab: Optional[PairVocab] = None
+                 ) -> Tuple[Trainer, PairVocab]:
+    """A ``Trainer`` of the hier family on ``device`` (``hier_model``),
+    without latent noise: ``hier-prop`` with ``OPTIMIZER``, or with
+    ``finetune`` ``hier-prop-opt`` with ``make_multi_optimizer`` over
+    ``default_group_fn``'s groups at ``FINETUNE_LRS``."""
+    model, vocab = hier_model(finetune, vocab)
+    if finetune:
+        opt = make_multi_optimizer(default_group_fn, FINETUNE_LRS, **{
+            k: v for k, v in OPTIMIZER.items() if k != 'lr'})
+    else:
+        opt = make_optimizer(**OPTIMIZER)
+    trainer = Trainer(model, opt, vocab.mask, beta=BETA, print_iter=10 ** 9,
+                      perturb_z=False, device=device)
+    return trainer, vocab
+
+
 def update_norms(before: Dict[str, np.ndarray], after: Dict[str, np.ndarray],
                  grads: Dict[str, np.ndarray]) -> Dict[str, float]:
     """Per leaf, the component of a step's update along the leaf's
@@ -176,16 +251,21 @@ def update_norms(before: Dict[str, np.ndarray], after: Dict[str, np.ndarray],
 
 def golden_steps(device: str, trainer: Optional[Trainer] = None,
                  batches: Optional[List[MolGraphBatch]] = None,
-                 finetune: bool = False) -> List[dict]:
+                 finetune: bool = False, hier: bool = False) -> List[dict]:
     """The port's first ``GOLDEN_STEPS`` steps as ``goldens/train_hopv.json``
-    (``goldens/train_propopt_hopv.json`` with ``finetune``) records the
+    (``goldens/train_propopt_hopv.json`` with ``finetune``;
+    ``goldens/train_hier_hopv.json`` and
+    ``goldens/train_hier_propopt_hopv.json`` with ``hier``) records the
     JAX package's: per-step metrics, per-leaf update norms (flax paths,
     ``update_norms``) and, under a per-group optimizer, each group's
-    gradient norm.  Without ``trainer``, the canonical (or fine-tuning)
-    trainer on the first HOPV batches."""
+    gradient norm.  Without ``trainer``, the canonical, fine-tuning or
+    hier trainer on the first HOPV batches."""
     if trainer is None:
-        trainer, vocab = (finetune_trainer if finetune
-                          else canonical_trainer)(device)
+        if hier:
+            trainer, vocab = hier_trainer(device, finetune)
+        else:
+            trainer, vocab = (finetune_trainer if finetune
+                              else canonical_trainer)(device)
         _, batches = hopv_batches(GOLDEN_STEPS, vocab)
     steps = []
     for mb in batches[:GOLDEN_STEPS]:
@@ -204,10 +284,14 @@ def golden_steps(device: str, trainer: Optional[Trainer] = None,
 
 
 def check_golden(steps: List[dict], golden: dict,
-                 later_update_rtol: float = UPDATE_RTOL) -> List[str]:
+                 later_update_rtol: float = UPDATE_RTOL,
+                 assm_atol: float = ACC_ATOL,
+                 property_rtol: Optional[float] = None) -> List[str]:
     """Where ``steps`` break the rule above against ``golden`` (the
-    updates after step 1 held within ``later_update_rtol``); empty if they
-    meet it."""
+    updates after step 1 held within ``later_update_rtol``, the assembly
+    accuracy within ``assm_atol``, the property losses within
+    ``property_rtol`` relative where it is given); empty if they meet
+    it."""
     bad = []
     if len(steps) != len(golden['steps']):
         return [f'{len(steps)} steps, the golden has {len(golden["steps"])}']
@@ -222,10 +306,13 @@ def check_golden(steps: List[dict], golden: dict,
         pairs += [(f'group {g} norm', got.get('group_norms', {}).get(
             g, float('nan')), w) for g, w in want.get('group_norms', {}).items()]
         for key, g, w in pairs:
-            if key in ACCURACIES:
+            if key == 'Assm':
+                tol = assm_atol
+            elif key in ACCURACIES:
                 tol = ACC_ATOL
             elif key in PROPERTY_KEYS:
-                tol = PROPERTY_ATOL
+                tol = PROPERTY_ATOL if property_rtol is None else \
+                    property_rtol * abs(w)
             elif key == 'GNorm' or key.startswith('group '):
                 tol = gnorm_tol * abs(w)
             else:
@@ -323,7 +410,7 @@ def replay_windows(trainer: Trainer, groups: List[List[dict]]
             torch.cuda.synchronize()
         _, events = profiled(replay)
         out.append(dict(
-            signature=signature(db),
+            signature=signature(db), scan_steps=db['plan']['mess'].shape[0],
             launches={k: float(v - before[k]) for k, v in _counts().items()},
             device={name: float(sum(e.count for e in events
                                     if kernel_of(e.key) == name))
@@ -332,10 +419,11 @@ def replay_windows(trainer: Trainer, groups: List[List[dict]]
     return out
 
 
-def check_replay_windows(windows: List[dict], expected: Dict[str, float]
+def check_replay_windows(windows: List[dict], expected
                          ) -> Tuple[list, list]:
     """Where ``replay_windows`` break ``expected`` launches a replayed
-    step, and the windows the profiler lost records in.  The wrappers'
+    step (a dict, or a function of the window's ``scan_steps`` giving
+    one), and the windows the profiler lost records in.  The wrappers'
     counts are held in every window.  Every replay of one graph runs the
     same kernels, so a window with fewer device records than the most a
     window of its signature holds lost records in the profiler (on the
@@ -345,11 +433,12 @@ def check_replay_windows(windows: List[dict], expected: Dict[str, float]
     most: Dict[Tuple, int] = {}
     for w in windows:
         most[w['signature']] = max(most.get(w['signature'], 0), w['records'])
+    want = expected if callable(expected) else lambda _: expected
     bad = [(i, 'launches', w['launches']) for i, w in enumerate(windows)
-           if w['launches'] != expected]
+           if w['launches'] != want(w.get('scan_steps'))]
     bad += [(i, 'device', w['device']) for i, w in enumerate(windows)
             if w['records'] == most[w['signature']] and
-            w['device'] != expected]
+            w['device'] != want(w.get('scan_steps'))]
     lost = [(i, most[w['signature']] - w['records'])
             for i, w in enumerate(windows)
             if w['records'] < most[w['signature']]]
@@ -357,12 +446,18 @@ def check_replay_windows(windows: List[dict], expected: Dict[str, float]
 
 
 def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch],
-                  graph: bool = False) -> dict:
+                  graph: bool = False, full: bool = True) -> dict:
     """Train mols/s and where a step's time goes, on the card, after one
     untimed epoch over ``batches``, with the steps eager or, with
     ``graph``, every flush of two or more replayed from the trainer's
-    captured step graphs (``Trainer.scan_steps``)."""
+    captured step graphs (``Trainer.scan_steps``).  Without ``full`` it
+    runs only the epochs the step's own figures need: no untimed epoch
+    for eager steps (the caller has warmed the card), no epoch through
+    ``train_epoch`` with the host's batch preparation, no replayed steps
+    alone; for the hier step, whose eager epoch takes half a minute."""
     n_mols = BATCH_SIZE * len(batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     prep_s = []
     for mb in batches:
         t0 = time.perf_counter()
@@ -377,17 +472,19 @@ def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch],
         torch.cuda.synchronize()
         return dispatch
 
-    epoch_on_device()                                  # untimed
+    if full or graph:
+        epoch_on_device()                              # untimed
     before = _counts()
     t0 = time.perf_counter()
     dispatch = epoch_on_device()
     wall = time.perf_counter() - t0
     per_kernel = {k: (v - before[k]) / n_steps
                   for k, v in _counts().items()}
-    t0 = time.perf_counter()
-    trainer.train_epoch(batches, log=lambda *_: None, graph=graph)
-    torch.cuda.synchronize()
-    wall_prep = time.perf_counter() - t0
+    if full:
+        t0 = time.perf_counter()
+        trainer.train_epoch(batches, log=lambda *_: None, graph=graph)
+        torch.cuda.synchronize()
+        wall_prep = time.perf_counter() - t0
     walls = []
 
     def timed_epoch():
@@ -402,7 +499,6 @@ def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch],
     out = dict(
         graph=graph, steps=n_steps, mols_per_step=BATCH_SIZE,
         train_mols_per_s=n_mols / wall,
-        train_mols_per_s_with_prep=n_mols / wall_prep,
         epoch_wall_s=wall, step_wall_ms=1e3 * wall / n_steps,
         host_prep_ms_per_step=1e3 * float(np.median(prep_s)),
         host_dispatch_ms_per_step=1e3 * float(np.median(dispatch)),
@@ -420,8 +516,13 @@ def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch],
             name: sum(_device_us(e) for e in events
                       if kernel_of(e.key) == name) / n_steps
             for name in KERNELS},
-        top_device_kernels=top_kernels(events, n_steps, n=12))
+        top_device_kernels=top_kernels(events, n_steps, n=12),
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    if full:
+        out['train_mols_per_s_with_prep'] = n_mols / wall_prep
     if graph:
+        out.update(trainer.graph_stats())
+    if graph and full:
         # the replayed steps alone (the flushes of two or more), the
         # window's busy time and wall from the same profiled run
         replayed = [g for g in groups if len(g) > 1]
@@ -435,9 +536,7 @@ def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch],
             walls.append(time.perf_counter() - t0)
         timed_replays()
         busy_r, _ = profiled(timed_replays)
-        out.update(trainer.graph_stats(),
-                   max_memory_allocated=torch.cuda.max_memory_allocated(),
-                   replayed_steps=n,
+        out.update(replayed_steps=n,
                    replayed_mols_per_s=BATCH_SIZE * n / walls[0],
                    replayed_step_wall_ms=1e3 * walls[0] / n,
                    replayed_device_busy_ms_per_step=busy_r / 1e3 / n,

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from ..bridge import to_flax_tree
-from ..data.batching import compact_plan_dict, to_model_batch, train_tables
+from ..data.batching import (compact_plan_dict, hier_train_tables,
+                             to_model_batch, train_tables)
 from ..ops import COUNTED
 from . import checkpoint as ckpt
 from .optim import Adam, MultiAdam
@@ -187,8 +188,9 @@ class StepGraph:
 
 class Trainer:
     """Orchestrates epochs over an iterable of ``MolGraphBatch`` objects
-    (or ``to_model_batch`` dicts) for the ``prop`` and ``prop-opt``
-    models; a ``prop-opt`` batch carries its HOMO/LUMO labels to the
+    (or ``to_model_batch`` dicts) for the four models of the registry
+    (``prop``, ``prop-opt``, ``hier-prop``, ``hier-prop-opt``); a batch of
+    a model with property heads carries its HOMO/LUMO labels to the
     device, NaN where a molecule has none.
 
     The optimizer (``optim.Adam`` or ``optim.MultiAdam``) is attached to
@@ -214,6 +216,7 @@ class Trainer:
                  device: str = 'cuda'):
         self.device = torch.device(device)
         self.model = model.to(self.device)
+        self.is_hier = getattr(model, 'is_hier', False)
         self.optimizer = optimizer
         self.opt_state = optimizer.attach(dict(self.model.named_parameters()))
         self.vocab_mask = np.asarray(vocab_mask)
@@ -241,19 +244,22 @@ class Trainer:
     # -- host side ---------------------------------------------------------
     def host_batch(self, mb) -> Dict[str, Any]:
         """A ``MolGraphBatch`` (or model-batch dict) as the model-batch dict
-        the JAX ``Trainer`` uploads for the motif family: its plan
-        lane-packed (``compact_plan_dict``)."""
+        the JAX ``Trainer`` uploads: for the motif family its plan
+        lane-packed (``compact_plan_dict``); the hier family's stays
+        unpacked (its scan is not lane-agnostic)."""
         if not isinstance(mb, Mapping):
             mb = to_model_batch(mb, self.vocab_mask, pad=False)
-        if 'mol_lane' not in mb['plan']:
+        if not self.is_hier and 'mol_lane' not in mb['plan']:
             mb = dict(mb, plan=compact_plan_dict(
                 {k: np.asarray(v) for k, v in mb['plan'].items()}))
         return mb
 
     def device_batch(self, host: Mapping) -> Dict[str, Any]:
         """``host_batch``'s dict with the training tables
-        (``train_tables``), on the device."""
-        return to_device(train_tables(host), self.device, self._mask_dev)
+        (``train_tables``, ``hier_train_tables`` for the hier family), on
+        the device."""
+        tables = hier_train_tables if self.is_hier else train_tables
+        return to_device(tables(host), self.device, self._mask_dev)
 
     # -- the step on the device ---------------------------------------------
     def _sync_step(self) -> None:

@@ -728,7 +728,7 @@ def test_vae_train_cli_one_epoch(data, tmp_path):
         model)), str(path))
     for k, v in flatten(jax.tree.map(np.asarray, jparams)).items():
         assert np.isfinite(v).all(), k
-    for bad, item in ((['--model-type', 'hier-prop'], 'A5'),
+    for bad, item in ((['--model-type', 'prop-opt-sched'], 'A4'),
                       (['--n-devices', '2'], 'A7'), (['--tp', '2'], 'A7')):
         argv = args + bad if bad[0] != '--model-type' else \
             args[:2] + bad + args[4:]
