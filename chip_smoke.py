@@ -156,21 +156,28 @@ script exits non-zero:
              ``ggpm_tpu_torch/goldens/decode_hier_hopv16.json`` (the JAX
              package's answers, which tests/test_torch_hier.py recomputes)
              and ``/sample`` of its request (8 at seed 0), through
-             ``HierMPNEncoder`` and the exact ``decode_hier``, each under
-             the profiler with the counts read just before and after.  The
-             latents must lie within 1e-4 of the CPU port's; the strings
-             meet phase 6's rule (at most 2 differ a request, each at an
-             fp32 near-tie, printed); each request's launches, by the
-             wrappers and by the profiler's device events alike, are 5
-             ``nei_sum`` and depthG + 2·depthT = 60 ``gather_rows`` an
-             encode and 5 ``nei_sum`` a decode step; and each call site's
-             launches, the wrappers' launches counted at the site whose
-             line made the call (``kernel_bench.hier_sites``), are its
-             share of them, with no launch outside a site.  The kernels
-             line's ``hier_sites`` carry these measured launches.  Last,
-             the hier encode
-             and exact-decode profiles of the 64
-             (``profile_serve.hier_profiles``).
+             ``HierMPNEncoder`` and the turbo ``decode_hier_turbo`` (its
+             propose loop replayed from CUDA graphs; samples that fall back
+             take the exact ``decode_hier``), each under the profiler with
+             the counts read just before and after.  The latents must lie
+             within 1e-4 of the CPU port's; the strings meet phase 6's rule
+             (at most 2 differ a request, each at an fp32 near-tie,
+             printed); each request's launches, by the wrappers and by the
+             profiler's device events alike, are 5 ``nei_sum`` and depthG +
+             2·depthT = 60 ``gather_rows`` an encode, 4 ``nei_sum`` a
+             propose step run (eager before a graph's capture, or
+             replayed) and 5 an exact step; and each call site's launches,
+             the wrappers' launches counted at the site whose line made the
+             call (``kernel_bench.hier_sites``), are its share of them, the
+             graph replays' under ``replay``, equal to the device events
+             that graph replays launched (their correlation ids are the
+             ``cudaGraphLaunch`` calls'), with no launch outside a site.
+             The kernels line's ``hier_sites`` carry these measured
+             launches.  Last, the hier encode and exact-decode
+             (``decode_hier`` called directly) profiles of the 64
+             (``profile_serve.hier_profiles``), the exact decode's
+             ``nei_sum`` launches 5 a step by the wrapper and the device
+             events, none by a graph.
 11. hier train — the hier family's training path: the trained
              ``hier-prop`` checkpoint (as phase 10) through the port's
              ``Trainer`` on the 17 full HOPV batches of 20 in its vocab
@@ -199,6 +206,49 @@ script exits non-zero:
              with its backward) against the plain version and the
              in-order sum, timed as in phase 4.  The kernels line's
              ``hier_train_sites`` carry them.
+12. hier turbo — the hier family's turbo decode (``decode_hier_turbo``)
+             on the trained ``hier-prop`` checkpoint, the counts reset just
+             before each part and read just after.  First the 16 golden
+             molecules' latents (the card's encoder) through one propose
+             round on the card (replayed from its CUDA graph) and on the
+             CPU port: the traces' integer columns equal and their floats
+             within 1e-4, except at most 2 samples whose first difference
+             is an fp32 near-tie of the CPU trace (the topology probability
+             within 1e-4 of 0.5, or two beam scores within 1e-4), printed
+             (``hier turbo traces``); then their ``decode_best`` on the card
+             against the golden by phase 6's rule, its fallbacks equal to
+             the CPU port's, and ``nei_sum``'s launches equal to 4 a
+             propose step run (``steps_run``) and a capture's eager step,
+             and 5 an exact step (``profile_serve.hier_turbo_launches``).
+             Then ``decode_best`` of the 64 molecules' latents and of 120
+             prior draws (``default_rng(0)``, the draws of
+             ``goldens/hier_turbo_prior120.json``), first once under the
+             profiler with each call site counted (``hier turbo decode
+             B64|B120``): the propose sites' eager launches equal to the
+             captures' eager steps, the exact step's sites' to the steps
+             of the fallbacks' exact decode, the wrappers' ``replay``
+             launches equal to the device events that graph replays
+             launched and to 4 a replayed step, and the wrapper, the
+             device events and the sites' sum equal to the count above;
+             the 120's fallbacks (printed with their causes, poisoned or
+             diverged) are the JAX package's and at most 2 of its strings
+             differ from the JAX package's.  Then turbo and exact profiled
+             (``profile_serve.profile_decode``'s ``hier-turbo`` and
+             ``hier`` paths; ``hier turbo B64|B120``: wall s, rounds,
+             rungs, fallbacks, a profiled propose round's device ms and
+             launches a step, replay and chemistry s, idle share), the
+             turbo's ``nei_sum`` launches equal to that count by the
+             wrapper and by the profiler's device events (those of graph
+             replays 4 a replayed step), the exact's 5 a step, and at most
+             2 strings differing between turbo and exact.  Last
+             ``nei_sum`` at the four propose sums
+             (``kernel_bench.hier_turbo_cases``, at step 20 of a round at
+             B = 64 and B = 120) against the plain version and the
+             in-order sum, timed as in phase 4; the kernels line's
+             ``hier_turbo_sites`` carry them with each site's eager
+             launches in the counted decodes, and ``nei_sum``'s
+             ``hier_turbo_replays`` the graph replays' launches there by
+             the device events (and the exact step's sites' launches).
 
 The line before the last is ``nvidia-smi``'s; the one before it a JSON
 object listing every kernel; the last line is
@@ -251,6 +301,8 @@ HIER_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                            'decode_hier_hopv16.json')
 FINETUNE_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                                'train_propopt_hopv.json')
+HIER_TURBO_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
+                                 'hier_turbo_prior120.json')
 HIER_TRAIN_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                                  'train_hier_hopv.json')
 HIER_FINETUNE_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
@@ -275,6 +327,8 @@ KERNEL_ATOL = 1e-5
 # the decode rule (docstring, phase 6)
 NEAR_TIE = 1e-4
 MAX_DIFFERING = 2
+# the card's propose trace against the CPU port's (phase 12)
+TRACE_ATOL = 1e-4
 # the optimize rule (docstring, phase 8)
 OPT_PRED_ATOL = 1e-4
 # a training step's launches of each kernel (phases 7 and 9): the node,
@@ -333,7 +387,10 @@ KERNELS = {
                     'cgraph and the root readout)',
                     'ggpm_tpu_torch/models/hier_decoder.py '
                     '(hdec_graph_update, hdec_topo, hdec_mess_update: the '
-                    'hier decode step\'s five frontier sums)']),
+                    'hier decode step\'s five frontier sums)',
+                    'ggpm_tpu_torch/models/hier_decoder.py (propose_step_: '
+                    'the hier turbo decode\'s four frontier sums a step, '
+                    'replayed from a CUDA graph)']),
     'transpose_sum': dict(
         route='cuda', source='ggpm_tpu_torch/csrc/transpose_sum.cu',
         replaces='ggpm_tpu/ops/graph_ops.py:111 (_nei_sum_t_bwd) and :134 '
@@ -358,6 +415,10 @@ assert set(KERNELS) == set(WRAPPERS)
 HIER_SITES = {f'hier-{site}': line for site, line in (
     kernel_bench.HIER_ENCODE_SITES + kernel_bench.HIER_STEP_SITES +
     kernel_bench.HIER_GATHER_SITES)}
+# the hier turbo decode's propose sums (phase 12), with the JAX line each
+# ports
+HIER_PROPOSE_SITES = {f'hier-turbo-{site}': line
+                      for site, line in kernel_bench.HIER_PROPOSE_SITES}
 # the hier training step's sums (phase 11), each with the JAX line it ports
 HIER_TRAIN_SITES = dict(kernel_bench.HIER_TRAIN_SITES,
                         **{'atom-gather': 'ggpm_tpu/ops/graph_ops.py:122 '
@@ -980,15 +1041,19 @@ def hier_requests(port, rows, golden):
     read just before and just after it: ``/encode`` of ``rows`` (64),
     ``/reconstruct`` of the golden's 16 and ``/sample`` of its request.
     Returns per request the answer, seconds, the wrappers' launches, the
-    device events' launches of each kernel, each call site's launches
-    (``kernel_bench.hier_sites``; None: launches no site made) and
-    ``decode.HIER_STATS``."""
+    device events' launches of each kernel and of them those made by CUDA
+    graph replays, each call site's launches (``kernel_bench.hier_sites``
+    with the propose step's sites; None: launches no site made;
+    ``replay``: the launches the wrappers added for graph replays),
+    ``decode.TURBO_STATS`` of its turbo decode and ``decode.HIER_STATS`` of
+    its exact fallback."""
     out = {}
     for name, path, payload in (
             ('encode', '/encode', {'smiles': [r[0] for r in rows]}),
             ('reconstruct', '/reconstruct', {'smiles': golden['inputs']}),
             ('sample', '/sample', golden['sample_request'])):
         decode.HIER_STATS.clear()
+        decode.TURBO_STATS.clear()
         before = read_counts()
         answer = []
 
@@ -1000,16 +1065,20 @@ def hier_requests(port, rows, golden):
         with kernel_bench.hier_sites() as sites:
             _, events = profiled(run)
         device = {k: 0 for k in WRAPPERS}
+        graph = dict(device)
         for e in events:
             if kernel_of(e.key):
                 device[kernel_of(e.key)] += e.count
+                graph[kernel_of(e.key)] += e.graph_count
         out[name] = dict(answer=answer[0], seconds=answer[1],
                          launches={k: v - before[k]
                                    for k, v in read_counts().items()},
                          device_launches=device,
+                         graph_device_launches=graph,
                          site_launches={site: c['launches']
                                         for site, c in sites.items()},
-                         stats=dict(decode.HIER_STATS))
+                         stats=dict(decode.HIER_STATS),
+                         turbo=dict(decode.TURBO_STATS))
     return out
 
 
@@ -1069,29 +1138,42 @@ def hier_phase(floor):
                                  f'differ from the JAX reference')
 
     # the launches: an encode's 5 readouts and its depth loops' rounds, a
-    # decode step's 5 frontier sums; by the wrappers, the device events and
-    # each call site (the wrappers' launches counted where the site calls)
+    # propose step's 4 frontier sums (eager before a capture, then graph
+    # replays), an exact step's 5; by the wrappers, the device events and
+    # each call site (the wrappers' launches counted where the site calls;
+    # the replays' launches under ``replay``, held to the device events
+    # that graph replays launched)
     cfg = hmodel.cfg
     encodes = {'encode': 1, 'reconstruct': 1, 'sample': 0}
     launches = {}
-    sites = {f'hier-{site}': 0 for site in kernel_bench.HIER_SITE_NAMES}
+    sites = {f'hier-{site}': 0 for site in kernel_bench.HIER_SITE_NAMES +
+             kernel_bench.HIER_PROPOSE_NAMES + ('replay',)}
     for name, a in answers.items():
-        steps = a['stats'].get('steps', 0)
+        ts = a['turbo'] or dict(steps_run=[], eager_steps=0, exact_steps=0)
         n = encodes[name]
         expected_sites = {
             **{site: n for site, _ in kernel_bench.HIER_ENCODE_SITES},
-            **{site: steps for site, _ in kernel_bench.HIER_STEP_SITES},
+            **{site: ts['exact_steps']
+               for site, _ in kernel_bench.HIER_STEP_SITES},
+            **{site: ts['eager_steps']
+               for site in kernel_bench.HIER_PROPOSE_NAMES},
             'atom-gather': cfg.depthG * n, 'tree-gather': 2 * cfg.depthT * n,
-            None: 0}
-        expected = {'nei_sum': 5 * n + 5 * steps,
+            None: 0, 'replay': 4 * sum(ts['steps_run'])}
+        expected = {'nei_sum': 5 * n + profile_serve.hier_turbo_launches(ts),
                     'gather_rows': (cfg.depthG + 2 * cfg.depthT) * n,
                     'transpose_sum': 0}
         by_site = a['site_launches']
+        graph = a['graph_device_launches']
         launches[name] = dict(wrappers=a['launches'],
                               device=a['device_launches'],
-                              expected=expected, steps=steps,
+                              graph_device=graph,
+                              expected=expected,
+                              steps_run=sum(ts['steps_run']),
+                              eager_steps=ts['eager_steps'],
+                              exact_steps=ts['exact_steps'],
+                              fallbacks=ts.get('fallbacks', 0),
+                              rounds=ts.get('rounds', 0),
                               sites={str(k): v for k, v in by_site.items()},
-                              assm_calls=a['stats'].get('assm_calls', 0),
                               seconds=a['seconds'])
         print(f'hier launches {name} ' + json.dumps(launches[name]),
               flush=True)
@@ -1099,21 +1181,27 @@ def hier_phase(floor):
             raise AssertionError(f'hier /{name}: launches {a["launches"]}, '
                                  f'device events {a["device_launches"]}, '
                                  f'expected {expected}')
-        if by_site != expected_sites:
+        if by_site != expected_sites or graph != dict(
+                nei_sum=by_site['replay'], transpose_sum=0, gather_rows=0):
             raise AssertionError(f'hier /{name}: launches by call site '
-                                 f'{by_site}, expected {expected_sites}')
-        for site in kernel_bench.HIER_SITE_NAMES:
-            sites[f'hier-{site}'] += by_site[site]
+                                 f'{by_site}, expected {expected_sites}; '
+                                 f'by graph replays {graph}')
+        for site, v in by_site.items():
+            if site is not None:
+                sites[f'hier-{site}'] += v
     for kernel in ('nei_sum', 'gather_rows'):
-        at_sites = sum(v for k, v in sites.items()
-                       if kernel_bench.HIER_SITE_CALLS[k[5:]][0] == kernel)
+        at_sites = sum(v for k, v in sites.items() if (
+            'nei_sum' if k == 'hier-replay' else
+            kernel_bench.HIER_SITE_CALLS[k[5:]][0]) == kernel)
         if at_sites != counts[kernel]:
             raise AssertionError(f'hier: {kernel} launches at the sites '
                                  f'{at_sites}, by the wrapper '
                                  f'{counts[kernel]}')
     prof = profile_serve.hier_profiles(hmodel, hvocab, rows)
+    prof['decode'].pop('smiles')
     print('hier encode ' + json.dumps(prof['encode']), flush=True)
     print(f'hier decode B{N_MOLS} ' + json.dumps(prof['decode']), flush=True)
+    check_exact_launches(f'hier decode B{N_MOLS}', prof['decode'])
     canon = [canon_smiles(s) for s in golden['inputs']]
     rec = answers['reconstruct']['answer']['smiles']
     summary = dict(
@@ -1125,6 +1213,250 @@ def hier_phase(floor):
         len(rec), launches=launches, site_launches=sites)
     print('hier ' + json.dumps(summary), flush=True)
     return summary, counts, site_rows, sites
+
+
+def check_exact_launches(what: str, prof: dict) -> None:
+    """An exact hier decode's profile (``profile_decode``'s ``hier``
+    path): ``nei_sum`` launched 5 times a step, by the wrapper in the
+    timed and in the profiled run and by the device events, none of them
+    from a graph replay."""
+    want = 5 * prof['steps']
+    if not (prof['nei_sum_launches'] == prof['nei_sum_device_launches'] ==
+            prof['profiled_nei_sum_launches'] == want) or \
+            prof['nei_sum_graph_device_launches']:
+        raise AssertionError(
+            f'{what}: nei_sum launches {prof["nei_sum_launches"]}, device '
+            f'events {prof["nei_sum_device_launches"]} (by graph replays '
+            f'{prof["nei_sum_graph_device_launches"]}), profiled '
+            f'{prof["profiled_nei_sum_launches"]}, expected {want}')
+
+
+def turbo_round(model, vocab, z):
+    """One propose round of the hier turbo decode over latents ``z`` at the
+    full rung: on the card replayed from the captured graph with the
+    lookahead, as ``decode_hier_turbo`` runs it; on the CPU eagerly.
+    Returns the round's outputs as numpy (packed, root motifs, root
+    attachments, steps active, poisoned) and the steps run."""
+    tabs, mask = decode._device_vocab(vocab, common_atom_vocab, z.device)
+    with torch.inference_mode():
+        prop = decode._proposer(
+            decode.HierProposer, model, vocab, mask, tabs, 5,
+            MAX_DECODE_STEP, len(z),
+            budgets=decode.hier_budgets(vocab, common_atom_vocab))
+        return decode.propose_round(prop, z)
+
+
+def trace_divergence(card, cpu, beam=5):
+    """Per sample, where the card's propose trace parts from the CPU
+    port's: the first step whose integer columns differ or whose floats
+    differ by more than ``TRACE_ATOL``, what differs there, and the CPU's
+    margin at that step (|p − 0.5| of the topology probability, or the
+    least gap between consecutive beam scores); infinite where the trace
+    holds no margin (the roots, or the assembly candidate alone, whose
+    scores the trace does not carry).  ``{}`` if every trace agrees."""
+    (pc, rc_c, ri_c, _, pois_c), (pp, rc_p, ri_p, _, pois_p) = card, cpu
+    cols = pc.shape[2]
+    floats = [0] + list(range(2, 2 + beam))
+    ints = [c for c in range(cols) if c not in floats]
+    out = {}
+    for b in range(pc.shape[1]):
+        if (rc_c[b], ri_c[b]) != (rc_p[b], ri_p[b]):
+            out[b] = (0, 'root', float('inf'))
+            continue
+        bad_i = (pc[:, b, ints] != pp[:, b, ints]).any(axis=1)
+        bad_f = (np.abs(pc[:, b, floats] - pp[:, b, floats]) >
+                 TRACE_ATOL).any(axis=1)
+        steps = np.flatnonzero(bad_i | bad_f)
+        if not len(steps):
+            if pois_c[b] != pois_p[b]:
+                out[b] = (None, 'poisoned', float('inf'))
+            continue
+        t = int(steps[0])
+        row = pp[t, b]
+        p_topo = 1.0 / (1.0 + np.exp(-float(row[0])))
+        gaps = -np.diff(row[2:2 + beam])
+        if pc[t, b, 1] != row[1]:
+            out[b] = (t, 'choice', abs(p_topo - 0.5))
+        elif (pc[t, b, 2:2 + 3 * beam] != row[2:2 + 3 * beam]).any():
+            out[b] = (t, 'top-k', float(gaps.min()))
+        else:
+            out[b] = (t, 'assembly', float('inf'))
+    return out
+
+
+def hier_turbo_phase(floor):
+    """Phase 12: the hier turbo decode on the card (docstring).  Returns
+    the phase's summary, the launches of its decodes, the kernel rows at
+    the propose sites and each propose site's launches in its decodes."""
+    with open(HIER_GOLDEN) as f:
+        golden = json.load(f)
+    hmodel, hvocab = load_model(HIER_CKPT, HIER_VOCAB, device='cuda')
+    hmodel_cpu, _ = load_model(HIER_CKPT, HIER_VOCAB, device='cpu')
+    rows = prune_to_vocab(read_csv_data(DATA), hvocab,
+                          verbose=False)[:N_MOLS]
+    n16 = len(golden['inputs'])
+    summary, counts = {}, {k: 0 for k in WRAPPERS}
+
+    # 1. traces: the 16 golden molecules' latents through the propose loop
+    # on the card and on the CPU port, then their decode against the golden
+    b16 = to_model_batch(tensorize(rows[:n16], hvocab, common_atom_vocab),
+                         hvocab.mask, pad=False)
+    z16 = encode(hmodel, b16)[0]
+    card, _ = turbo_round(hmodel, hvocab, z16)
+    cpu, _ = turbo_round(hmodel_cpu, hvocab, z16.cpu())
+    div = trace_divergence(card, cpu)
+    near = {b: d for b, d in div.items() if d[2] < NEAR_TIE}
+    trace = dict(samples=n16, steps_active=[card[3], cpu[3]],
+                 poisoned=[int(card[4].sum()), int(cpu[4].sum())],
+                 differ={str(b): d for b, d in div.items()},
+                 max_float_diff_where_equal=float(max(
+                     (np.abs(card[0][:, b] - cpu[0][:, b]).max()
+                      for b in range(n16) if b not in div), default=0.0)))
+    print('hier turbo traces ' + json.dumps(trace), flush=True)
+    if len(div) > MAX_DIFFERING or len(near) != len(div):
+        raise AssertionError(f'hier turbo: traces of {sorted(div)} differ '
+                             f'from the CPU port\'s, near-ties only at '
+                             f'{sorted(near)}')
+    reset_counts()
+    _, smiles = decode_best(hmodel, hvocab, common_atom_vocab, z16,
+                            max_decode_step=MAX_DECODE_STEP)
+    card_stats = dict(decode.TURBO_STATS)
+    got = read_counts()
+    with torch.inference_mode():
+        decode_best(hmodel_cpu, hvocab, common_atom_vocab, z16.cpu(),
+                    max_decode_step=MAX_DECODE_STEP)
+    cpu_stats = dict(decode.TURBO_STATS)
+    differ = check_decode(
+        'hier turbo golden', smiles, golden['reconstruct'],
+        logs_of(hmodel, hvocab, lambda: z16),
+        logs_of(hmodel_cpu, hvocab, lambda: encode(hmodel_cpu, b16)[0]))
+    expected = profile_serve.hier_turbo_launches(card_stats)
+    summary['golden'] = dict(
+        trace=trace, differ_from_jax=differ,
+        fallbacks=[card_stats['fallbacks'], cpu_stats['fallbacks']],
+        rounds=card_stats['rounds'], nei_sum_launches=got['nei_sum'],
+        expected_nei_sum_launches=expected)
+    print('hier turbo golden ' + json.dumps(summary['golden']), flush=True)
+    if len(differ) > MAX_DIFFERING or \
+            card_stats['fallbacks'] != cpu_stats['fallbacks'] or \
+            got['nei_sum'] != expected:
+        raise AssertionError(f'hier turbo golden: {summary["golden"]}')
+    for k in counts:
+        counts[k] += got[k]
+
+    # 2. the requests: decode_best of the 64 molecules' latents and of 120
+    # prior draws.  First one decode under the profiler, with each call
+    # site counted: eager launches at the propose sites (each capture's
+    # step) and at the exact step's sites (the fallbacks' decode), and the
+    # graph replays' launches by the wrappers and by the device events;
+    # then turbo and exact profiled (profile_decode)
+    with open(HIER_TURBO_GOLDEN) as f:
+        prior_golden = json.load(f)
+    b64 = to_model_batch(tensorize(rows, hvocab, common_atom_vocab),
+                         hvocab.mask, pad=False)
+    z120 = torch.as_tensor(np.random.default_rng(
+        prior_golden['seed']).standard_normal(
+        (prior_golden['n'], hmodel.cfg.latent_size)).astype(np.float32),
+        device='cuda')
+    latents = [encode(hmodel, b64)[0], z120]
+    site_launches, replays = {}, {}
+    for z in latents:
+        B = len(z)
+        reset_counts()
+        out = []
+        with kernel_bench.hier_sites() as at:
+            _, events = profiled(lambda: out.append(decode_best(
+                hmodel, hvocab, common_atom_vocab, z,
+                max_decode_step=MAX_DECODE_STEP)))
+        stats = dict(decode.TURBO_STATS)
+        got = read_counts()
+        for k in counts:
+            counts[k] += got[k]
+        smiles = out[0][1]
+        nei = [e for e in events if kernel_of(e.key) == 'nei_sum']
+        device = sum(e.count for e in nei)
+        graph = sum(e.graph_count for e in nei)
+        by_site = {str(k): v['launches'] for k, v in at.items()}
+        expected_sites = {
+            **{str(k): 0 for k in at},
+            **{site: stats['eager_steps']
+               for site in kernel_bench.HIER_PROPOSE_NAMES},
+            **{site: stats['exact_steps']
+               for site, _ in kernel_bench.HIER_STEP_SITES},
+            'replay': 4 * sum(stats['steps_run'])}
+        decoded = dict(
+            nei_sum_launches=got['nei_sum'], device_launches=device,
+            graph_device_launches=graph,
+            expected=profile_serve.hier_turbo_launches(stats),
+            sites=by_site, steps_run=sum(stats['steps_run']),
+            eager_steps=stats['eager_steps'],
+            exact_steps=stats['exact_steps'], fallbacks=stats['fallbacks'],
+            fallback_causes=stats['fallback_causes'])
+        print(f'hier turbo decode B{B} ' + json.dumps(decoded), flush=True)
+        if not (got['nei_sum'] == device == decoded['expected'] ==
+                graph + sum(v for k, v in by_site.items() if k != 'replay')) \
+                or graph != by_site['replay'] or by_site != expected_sites:
+            raise AssertionError(f'hier turbo B{B}: launches {decoded}, '
+                                 f'by site expected {expected_sites}')
+        site_launches.update({f'hier-turbo-{site}-B{B}': by_site[site]
+                              for site in kernel_bench.HIER_PROPOSE_NAMES})
+        replays[f'B{B}'] = dict(launches=graph, steps_run=decoded[
+            'steps_run'], exact_step_launches={
+                site: by_site[site]
+                for site, _ in kernel_bench.HIER_STEP_SITES})
+
+        turbo = profile_decode(hmodel, hvocab, z, 'hier-turbo',
+                               max_decode_step=MAX_DECODE_STEP)
+        exact = profile_decode(hmodel, hvocab, z, 'hier',
+                               max_decode_step=MAX_DECODE_STEP)
+        t_smiles, e_smiles = turbo.pop('smiles'), exact.pop('smiles')
+        differ = [i for i, (a, b) in enumerate(zip(t_smiles, e_smiles))
+                  if a != b]
+        row = dict(turbo=turbo, exact=exact, turbo_vs_exact_differ=differ)
+        if z is z120:
+            # the prior draws against the JAX package's turbo decode of
+            # them (its CPU ladder: one sample outlives rung 64)
+            row['vs_jax'] = dict(
+                differ=[i for i, (a, b) in enumerate(
+                    zip(smiles, prior_golden['smiles'])) if a != b],
+                fallback_causes=[sorted(stats['fallback_causes']),
+                                 prior_golden['fallback_causes']])
+        print(f'hier turbo B{B} ' + json.dumps(row), flush=True)
+        summary[f'B{B}'] = dict(
+            wall_s=[turbo['wall_s'], exact['wall_s']],
+            rounds=turbo['rounds'], rungs=turbo['rungs'],
+            fallbacks=turbo['fallbacks'],
+            fallback_causes=stats['fallback_causes'],
+            propose_ms_per_step=turbo['round']['device_ms_per_step'],
+            launches_per_step=turbo['round']['device_launches_per_step'],
+            replay_s=sum(turbo['replay_s']),
+            chemistry_s=turbo['chemistry_s'],
+            idle_share=[turbo['device_idle_share'],
+                        exact['device_idle_share']],
+            differ=differ)
+        check_exact_launches(f'hier turbo B{B} exact', exact)
+        # (the profiled round's launches a step are printed, not held: the
+        # profiler loses records in some replay windows, PERF.md section 7)
+        if not (turbo['nei_sum_launches'] ==
+                turbo['expected_nei_sum_launches'] ==
+                turbo['nei_sum_device_launches'] ==
+                turbo['profiled_nei_sum_launches']) or \
+                turbo['nei_sum_graph_device_launches'] != \
+                4 * sum(turbo['steps_run']) or \
+                len(differ) > MAX_DIFFERING or t_smiles != smiles or \
+                'vs_jax' in row and (
+                    len(row['vs_jax']['differ']) > MAX_DIFFERING or
+                    row['vs_jax']['fallback_causes'][0] !=
+                    row['vs_jax']['fallback_causes'][1]):
+            raise AssertionError(f'hier turbo B{B}: {row}')
+
+    # 3. the kernel at the four propose sums, B = 64 and B = 120
+    turbo_rows = {}
+    for row in checked(kernel_bench.measure(
+            kernel_bench.hier_turbo_cases(hmodel, hvocab, latents), floor)):
+        turbo_rows.setdefault(row['kernel'], {})[row['case']] = row
+    print('hier turbo ' + json.dumps(summary), flush=True)
+    return summary, counts, turbo_rows, site_launches, replays
 
 
 def main() -> int:
@@ -1243,10 +1575,15 @@ def main() -> int:
     t0 = time.perf_counter()
     hier_profs, htcounts, htrain_rows, htrain_check = hier_train_phase(
         floor_ms())
+    phase('hier train', t0)
+
+    t0 = time.perf_counter()
+    hturbo_summary, htbcounts, hturbo_rows, hturbo_sites, hturbo_replays = \
+        hier_turbo_phase(floor_ms())
     counts = {name: counts[name] + dcounts[name] + ocounts[name] +
               hcounts[name] + tcounts[name] + fcounts[name] +
-              htcounts[name] for name in counts}
-    phase('hier train', t0)
+              htcounts[name] + htbcounts[name] for name in counts}
+    phase('hier turbo', t0)
 
     keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
             'bound_by', 'floor_ms', 'host_ms')
@@ -1280,10 +1617,12 @@ def main() -> int:
             max_abs_err_all_cases=max(
                 x['max_abs_err'] for x in list(rows_of.values()) +
                 list(hier_rows.get(name, {}).values()) +
-                list(htrain_rows.get(name, {}).values())),
+                list(htrain_rows.get(name, {}).values()) +
+                list(hturbo_rows.get(name, {}).values())),
             call_sites=k['call_sites'], case=k['main_case'],
             **({'turbo_decode': in_graph, 'per_optimize_request': {
-                p: o['nei_sum_launches'] for p, o in opt_summary.items()}}
+                p: o['nei_sum_launches'] for p, o in opt_summary.items()},
+                'hier_turbo_replays': hturbo_replays}
                if name == 'nei_sum' else {}),
             shape=r.get('shape') or dict(h=r['h'], graph=r['graph']),
             cases={case: {key: row[key] for key in keys}
@@ -1297,7 +1636,12 @@ def main() -> int:
                 {key: row[key] for key in keys}, shape=row['shape'],
                 replaces=HIER_TRAIN_SITES.get(case.split('hier-train-')[-1]
                                               .removesuffix('-bwd')))
-                for case, row in htrain_rows.get(name, {}).items()}))
+                for case, row in htrain_rows.get(name, {}).items()},
+            hier_turbo_sites={case: dict(
+                {key: row[key] for key in keys}, shape=row['shape'],
+                launches=hturbo_sites[case],
+                replaces=HIER_PROPOSE_SITES[case.split('-B')[0]])
+                for case, row in hturbo_rows.get(name, {}).items()}))
     print(f'total {time.perf_counter() - t_all:.1f}s', flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)

@@ -26,7 +26,10 @@ sites (``hier_cases``), on the inputs the trained ``hier-prop``
 checkpoint's serve path gives them: the encode of the first 64 in-vocab
 HOPV molecules (the five readouts, and the depth loop's gather at the atom
 level and at the tree level) and one step of the exact decode of the
-first 16 (its five frontier sums), each line as ``measure`` gives it.
+first 16 (its five frontier sums), each line as ``measure`` gives it; and
+``nei_sum`` at the turbo decode's four propose sums
+(``hier_turbo_cases``), at step 20 of a propose round over the 64
+molecules' latents and over 120 prior draws.
 ``hier_train_cases``, the new calls of a hier training step, are
 measured by ``chip_smoke.py``.
 
@@ -409,18 +412,37 @@ HIER_SITE_CALLS = {
     'tree-gather': ('gather_rows', 'encoder', 'HierMPNEncoder.forward',
                     ('self.inter_encoder(', 'self.tree_encoder(')),
 }
+# the turbo decode's propose step (HierDecoder.propose_step_): its four
+# frontier sums, each a K1 launch, at the JAX line it ports
+HIER_PROPOSE_SITES = (
+    ('propose-atom', 'ggpm_tpu/models/hier_decoder.py:1063'),
+    ('propose-cluster', 'ggpm_tpu/models/hier_decoder.py:1068'),
+    ('propose-inter', 'ggpm_tpu/models/hier_decoder.py:1073'),
+    ('propose-tree', 'ggpm_tpu/models/hier_decoder.py:1083'))
+HIER_SITE_CALLS.update({
+    'propose-atom': ('nei_sum', 'hier_decoder', 'HierDecoder.propose_step_',
+                     ('atom_nei = nei_sum(',)),
+    'propose-cluster': ('nei_sum', 'hier_decoder',
+                        'HierDecoder.propose_step_', ('hclu_v = nei_sum(',)),
+    'propose-inter': ('nei_sum', 'hier_decoder', 'HierDecoder.propose_step_',
+                      ('inter_nei = nei_sum(',)),
+    'propose-tree': ('nei_sum', 'hier_decoder', 'HierDecoder.propose_step_',
+                     ('tree_nei = nei_sum(',))})
 HIER_SITE_NAMES = tuple(site for site, _ in HIER_ENCODE_SITES +
                         HIER_STEP_SITES + HIER_GATHER_SITES)
-assert set(HIER_SITE_NAMES) == set(HIER_SITE_CALLS)
+HIER_PROPOSE_NAMES = tuple(site for site, _ in HIER_PROPOSE_SITES)
+assert set(HIER_SITE_NAMES + HIER_PROPOSE_NAMES) == set(HIER_SITE_CALLS)
+HIER_TURBO_STEP = 20   # the propose step whose sums hier_turbo_cases take
 
 
-def hier_site_lines() -> dict:
-    """``{(kernel, code object, line): site}`` of ``HIER_SITE_CALLS``,
-    read from the port's source."""
+def hier_site_lines(names: Sequence[str] = HIER_SITE_NAMES) -> dict:
+    """``{(kernel, code object, line): site}`` of ``HIER_SITE_CALLS``'s
+    ``names``, read from the port's source."""
     from .models import encoder, hier_decoder
     modules = {'encoder': encoder, 'hier_decoder': hier_decoder}
     lines = {}
-    for site, (kernel, module, qualname, texts) in HIER_SITE_CALLS.items():
+    for site in names:
+        kernel, module, qualname, texts = HIER_SITE_CALLS[site]
         fn = modules[module]
         for part in qualname.split('.'):
             fn = getattr(fn, part)
@@ -445,15 +467,22 @@ def hier_sites(keep: bool = False):
     the line it is running.  Yields ``{site: {'calls', 'launches'}}``
     with the calls no site made under None; with ``keep``, each site's
     entry also holds copies of the arguments of its last call
-    (``'args'``)."""
+    (``'args'``).  The sites are the serve path's (``HIER_SITE_NAMES``)
+    and the turbo decode's propose step's four (``HIER_PROPOSE_SITES``);
+    ``'replay'`` holds the launches the wrappers gained outside any call,
+    by CUDA graph replays of a captured step
+    (``models/decode.py:Proposer.run_step``).  A call recorded by a
+    capture launches nothing: it counts as a call."""
     from .models import encoder, hier_decoder, rnn
-    lines = hier_site_lines()
+    names = HIER_SITE_NAMES + HIER_PROPOSE_NAMES
+    lines = hier_site_lines(names)
     codes = {code for _, code, _ in lines}
-    counts = {site: dict(calls=0, launches=0)
-              for site in HIER_SITE_NAMES + (None,)}
+    counts = {site: dict(calls=0, launches=0) for site in names + (None,)}
     patched = [(encoder, 'nei_sum'), (hier_decoder, 'nei_sum'),
                (rnn, 'gather_rows')]
     originals = [getattr(m, name) for m, name in patched]
+    wrappers = (nei_sum, gather_rows)
+    start = sum(w.launches for w in wrappers)
 
     def counted(fn, kernel):
         def call(*args):
@@ -478,6 +507,9 @@ def hier_sites(keep: bool = False):
     finally:
         for (m, name), fn in zip(patched, originals):
             setattr(m, name, fn)
+        counts['replay'] = dict(calls=0, launches=sum(
+            w.launches for w in wrappers) - start - sum(
+            c['launches'] for c in counts.values()))
 
 
 def hier_cases(model, vocab, rows: Sequence[list], decode_rows: int = 16,
@@ -512,6 +544,37 @@ def hier_cases(model, vocab, rows: Sequence[list], decode_rows: int = 16,
               for site, _ in HIER_STEP_SITES]
     cases += [gather_rows_case(f'hier-{site}', *enc[site]['args'])
               for site, _ in HIER_GATHER_SITES]
+    return cases
+
+
+def hier_turbo_cases(model, vocab, latents: Sequence[torch.Tensor],
+                     step: int = HIER_TURBO_STEP, T: int = TURBO_T
+                     ) -> List[dict]:
+    """The hier turbo decode's kernel cases (``measure`` cases named
+    ``hier-turbo-<site>-B<width>``): for each batch of ``latents`` (on the
+    card), the four ``nei_sum`` calls of the propose step
+    (``HIER_PROPOSE_SITES``) at step ``step`` of an eager propose round at
+    the turbo decode's budgets and a ``T``-step rung, on the inputs that
+    round gives them (``hier_sites``)."""
+    from .models import decode
+    from .graph.vocab import common_atom_vocab as avocab
+    tabs, mask = decode._device_vocab(vocab, avocab, latents[0].device)
+    budgets = decode.hier_budgets(vocab, avocab)
+    cases = []
+    for z in latents:
+        with torch.inference_mode(), hier_sites(keep=True) as at:
+            prop = decode.HierProposer(model, mask, tabs, 5, T, len(z),
+                                       graph=False, budgets=budgets)
+            prop.start(z)
+            for _ in range(step):
+                prop.run_step()
+        calls = {site: at[site]['calls'] for site in HIER_PROPOSE_NAMES}
+        if calls != {site: step for site in HIER_PROPOSE_NAMES}:
+            raise AssertionError(f'hier_turbo_cases: calls {calls}, '
+                                 f'expected {step} each')
+        cases += [nei_sum_case(f'hier-turbo-{site}-B{len(z)}',
+                               *at[site]['args'])
+                  for site in HIER_PROPOSE_NAMES]
     return cases
 
 
@@ -790,7 +853,16 @@ def main(argv=None) -> List[dict]:
         model, vocab = load_model(HIER_CKPT, HIER_VOCAB, device='cuda')
         hrows = prune_to_vocab(read_csv_data(DATA), vocab,
                                verbose=False)[:N_MOLS]
-        for row in measure(hier_cases(model, vocab, hrows), floor_ms()):
+        hbatch = to_model_batch(tensorize(hrows, vocab, common_atom_vocab),
+                                vocab.mask, pad=False)
+        from .models.api import encode
+        latents = [encode(model, hbatch)[0], torch.as_tensor(
+            np.random.default_rng(0).standard_normal(
+                (DECODE_BATCHES[1], model.cfg.latent_size)).astype(
+                np.float32), device='cuda')]
+        cases = hier_cases(model, vocab, hrows) + \
+            hier_turbo_cases(model, vocab, latents)
+        for row in measure(cases, floor_ms()):
             row['device'] = smi
             print(f'{row["kernel"]} ' + json.dumps(row), flush=True)
             rows.append(row)

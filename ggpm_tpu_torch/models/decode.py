@@ -1,8 +1,8 @@
 """Batched autoregressive decoding: reconstruction and sampling (counterpart
 of ``ggpm_tpu/models/decode.py``: ``hier_topk``, the exact motif path
 ``decode_motif``, the device-resident turbo path ``decode_motif_turbo``,
-the exact hier path ``decode_hier``, ``decode_best`` and ``sample_prior``;
-the hier turbo path is ROADMAP A5).
+the exact hier path ``decode_hier``, its turbo path ``decode_hier_turbo``,
+``decode_best`` and ``sample_prior``).
 
 The exact path grows one junction tree and one molecule per sample
 (``models/inc_graph.py``) and makes one device call per step,
@@ -18,9 +18,12 @@ propose_step_``, with a tensorised assembly oracle over ``_assm_tables``)
 and fetches one decision trace per round, which the host replays with the
 real chemistry (``_replay_pinned``); samples where the chemistry disagrees
 re-enter the next round with their executed prefix pinned.  On the card a
-``Proposer`` replays each step from a captured CUDA graph.
-``decode_best`` sends greedy decodes without per-step logs there, as the
-JAX package does; the two paths give the same SMILES.
+``Proposer`` replays each step from a captured CUDA graph.  The hier
+family's turbo path (``decode_hier_turbo``) runs its propose loop
+(``HierDecoder.propose_step_``) the same way, through a ``HierProposer``,
+and sends a sample whose replay diverges to the exact path whole.
+``decode_best`` sends greedy decodes without per-step logs to the turbo
+paths, as the JAX package does; each gives its exact path's SMILES.
 """
 
 from __future__ import annotations
@@ -546,14 +549,17 @@ ORACLE_SLOTS = 24          # motifs larger than this get no-opinion treatment
 ORACLE_ATOMS = 1024        # per-sample atom-id capacity of the device oracle
 _FV_BIG = 63               # "unlimited valence" sentinel (max_valence == 0)
 
-# diagnostics of the last ``decode_motif_turbo`` call: the JAX package's
-# keys (rounds, batch, fallbacks, pending per round, rungs) and, per
-# dispatched round, the steps with a sample active (``steps``, the JAX
-# loop's trip count), the steps the device ran (``steps_run``: up to the
-# lookahead past ``steps``), and the host's seconds waiting for the trace
-# (``wait_s``) and replaying it (``replay_s``); ``eager_steps`` counts the
-# steps run outside the rounds: one before each graph's capture, and the
-# exact path's for samples that fell back.  Each step launches B1 once.
+# diagnostics of the last ``decode_motif_turbo`` or ``decode_hier_turbo``
+# call: the JAX package's keys (rounds, batch, fallbacks, pending per
+# round, rungs) and, per dispatched round, the steps with a sample active
+# (``steps``, the JAX loop's trip count), the steps the device ran
+# (``steps_run``: up to the lookahead past ``steps``), and the host's
+# seconds waiting for the trace (``wait_s``) and replaying it
+# (``replay_s``); ``eager_steps`` counts the steps run outside the rounds:
+# one before each graph's capture, and for the motif family the exact
+# path's for samples that fell back (the hier family's are
+# ``exact_steps``, and ``fallback_causes`` says why each fell back).  A motif step launches B1 once; a hier propose step
+# four times, an exact hier step five times.
 TURBO_STATS: dict = {}
 
 # the turbo decode on the card, chosen by ``profile_serve.propose_sweep``
@@ -830,12 +836,13 @@ class Proposer:
     the turbo path is greedy) and its trace as static tensors.  ``start``
     copies a round's inputs in and resets the carry; each ``run_step``
     advances one step and sets the ``alive`` flag (a sample still active
-    and ``t < T``).  With ``graph`` (CUDA tensors only) a step is one
-    replay of a captured ``torch.cuda.CUDAGraph``; it is captured at
-    construction, after one eager step on a side stream, and a failure
-    raises.  Each replay adds the kernel launches its capture recorded to
-    the wrappers' counts.  Without it the step runs eagerly.  Steps past
-    the last active one write zero rows."""
+    and ``t < T``); ``outputs`` are the tensors a round returns.  With
+    ``graph`` (CUDA tensors only) a step is one replay of a captured
+    ``torch.cuda.CUDAGraph``; it is captured at construction, after one
+    eager step on a side stream, and a failure raises.  Each replay adds
+    the kernel launches its capture recorded to the wrappers' counts.
+    Without it the step runs eagerly.  Steps past the last active one
+    write zero rows."""
 
     def __init__(self, model, mask: torch.Tensor,
                  tabs: Dict[str, torch.Tensor], beam: int, T: int,
@@ -845,23 +852,31 @@ class Proposer:
         self.T, self.max_nb = T, max_nb
         device = mask.device
         self.rv = torch.zeros((width, self.dec.latent_size), device=device)
-        self.u = torch.full((T, width), 0.5, device=device)  # greedy
-        self.pins = torch.zeros((3, T, width), dtype=torch.int64,
-                                device=device)
-        self.carry = self.dec.propose_carry(
-            width, T, tabs['stype'].shape[1], ORACLE_ATOMS, max_nb, device)
-        self.trace = torch.zeros((T, width, 5 + 3 * beam), device=device)
+        self._alloc(width, device)
         self.alive = torch.zeros(1, dtype=torch.bool, device=device)
         self.graph = None
         self.replay_launches: list = []
         if graph:
             self._capture()
 
+    def _alloc(self, width: int, device) -> None:
+        T = self.T
+        self.u = torch.full((T, width), 0.5, device=device)  # greedy
+        self.pins = torch.zeros((3, T, width), dtype=torch.int64,
+                                device=device)
+        self.carry = self.dec.propose_carry(
+            width, T, self.tabs['stype'].shape[1], ORACLE_ATOMS, self.max_nb,
+            device)
+        self.trace = torch.zeros((T, width, 5 + 3 * self.beam), device=device)
+
     def _step(self) -> None:
         self.dec.propose_step_(
             self.carry, self.rv, self.mask, self.u, self.pins[0],
             self.pins[1], self.pins[2], self.tabs, self.trace, self.beam,
             self.T, self.max_nb)
+        self._set_alive()
+
+    def _set_alive(self) -> None:
         cy = self.carry
         self.alive.copy_((cy['sp'] > 0).any() & (cy['t'] < self.T))
 
@@ -896,6 +911,11 @@ class Proposer:
         self.trace.zero_()
         self.dec.propose_init_(self.carry, self.rv, self.mask, self.tabs)
 
+    def outputs(self) -> tuple:
+        """(packed trace, root motifs, root attachments, steps active)."""
+        cy = self.carry
+        return self.trace, cy['root_cls'], cy['root_icls'], cy['n_run']
+
     def run_step(self) -> None:
         if self.graph is None:
             self._step()
@@ -905,22 +925,63 @@ class Proposer:
             w.launches += n
 
 
-def _proposer(model, vocab: PairVocab, mask, tabs, beam: int, T: int,
-              width: int) -> Proposer:
-    """The ``Proposer`` of this shape, kept in a small LRU (each holds its
-    carry and, on the card, a graph's memory pool), keyed like the JAX
-    package's ``_get_kernel``; the entry keeps the model and vocab alive so
-    that their ids are not reused.  A capture's eager step counts in
-    ``TURBO_STATS['eager_steps']``."""
+class HierProposer(Proposer):
+    """The hier family's propose loop (``HierDecoder.propose_step_``, the
+    counterpart of the JAX package's ``HierDecodeKernel.propose``) at one
+    rung length, width and set of ``budgets`` (atoms, bond rows, in-rows an
+    atom, cluster rows a node), driven as ``Proposer`` drives the motif
+    family's.  It takes no pins: a hier sample whose replay diverges falls
+    back to the exact path whole.  Its outputs add the ``poisoned`` flags
+    [width]."""
+
+    def __init__(self, model, mask: torch.Tensor,
+                 tabs: Dict[str, torch.Tensor], beam: int, T: int,
+                 width: int, graph: bool, budgets: tuple):
+        self.budgets = budgets
+        super().__init__(model, mask, tabs, beam, T, width, graph)
+
+    def _alloc(self, width: int, device) -> None:
+        self.carry = self.dec.propose_carry(
+            width, self.T, self.tabs['stype'].shape[1], *self.budgets,
+            self.max_nb, device)
+        self.trace = torch.zeros((self.T, width, 9 + 3 * self.beam),
+                                 device=device)
+
+    def _step(self) -> None:
+        self.dec.propose_step_(self.carry, self.rv, self.mask, self.tabs,
+                               self.trace, self.beam, max_nb=self.max_nb)
+        self._set_alive()
+
+    def start(self, root_vecs: torch.Tensor, pins=None) -> None:
+        """Queue a round for latents [width, latent] on the device."""
+        self.rv.copy_(root_vecs)
+        self.trace.zero_()
+        self.dec.propose_init_(self.carry, self.rv, self.mask, self.tabs)
+
+    def outputs(self) -> tuple:
+        """``Proposer.outputs`` and the ``poisoned`` flags."""
+        return super().outputs() + (self.carry['poisoned'],)
+
+
+def _proposer(cls, model, vocab: PairVocab, mask, tabs, beam: int, T: int,
+              width: int, **kwargs) -> Proposer:
+    """The proposer of class ``cls`` (``Proposer``, or ``HierProposer``
+    with its ``budgets`` in ``kwargs``) of this shape, kept in a small LRU
+    (each holds its carry and, on the card, a graph's memory pool), keyed
+    like the JAX package's ``_get_kernel``; the entry keeps the model and
+    vocab alive so that their ids are not reused.  A capture's eager step
+    counts in ``TURBO_STATS['eager_steps']``."""
     cuda = mask.device.type == 'cuda'
-    key = (id(model), id(vocab), beam, T, width, str(mask.device))
+    key = (cls, id(model), id(vocab), beam, T, width, str(mask.device),
+           tuple(sorted(kwargs.items())))
     with _lock:
         hit = _PROPOSERS.get(key)
         if hit is not None:
             _PROPOSERS.move_to_end(key)
             return hit[0]
-        prop = Proposer(model, mask, tabs, beam, T, width, graph=cuda)
-        TURBO_STATS['eager_steps'] += cuda
+        prop = cls(model, mask, tabs, beam, T, width, graph=cuda, **kwargs)
+        TURBO_STATS['eager_steps'] = TURBO_STATS.get('eager_steps', 0) + \
+            cuda
         _PROPOSERS[key] = (prop, model, vocab)
         while len(_PROPOSERS) > _PROPOSERS_MAX:
             _PROPOSERS.popitem(last=False)
@@ -980,8 +1041,7 @@ class _Round:
                 return True
 
     def _finish(self) -> None:
-        p, cy = self.prop, self.prop.carry
-        outs = (p.trace, cy['root_cls'], cy['root_icls'], cy['n_run'])
+        outs = self.prop.outputs()
         if self.cuda:
             host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
                     for o in outs]
@@ -995,12 +1055,13 @@ class _Round:
         self.finished = True
 
     def result(self):
-        """(packed [T, width, C], root_cls, root_icls, steps active) as
-        numpy, once the copy has arrived."""
+        """The proposer's ``outputs`` as numpy, once the copy has arrived:
+        (packed [T, width, C], root_cls, root_icls, steps active, and the
+        hier family's ``poisoned``)."""
         if self.done is not None:
             self.done.synchronize()
-        packed, rc, ri, n_run = (o.numpy() for o in self.out)
-        return packed, rc, ri, int(n_run[0])
+        packed, rc, ri, n_run, *rest = (o.numpy() for o in self.out)
+        return (packed, rc, ri, int(n_run[0]), *rest)
 
 
 class _RoundQueue:
@@ -1028,6 +1089,21 @@ class _RoundQueue:
                 self.rounds.popleft()
         self.pump()              # start the next round before the fetch
         return rnd.result()
+
+
+def propose_round(prop: Proposer, root_vecs: torch.Tensor, pins=None,
+                  lookahead: Optional[int] = None):
+    """One propose round of ``prop`` over ``root_vecs`` (and the motif
+    family's ``pins``), driven as the turbo decodes drive a round (a
+    ``_Round`` through a ``_RoundQueue``, ``lookahead`` steps ahead: by
+    default the device's): the round's ``result`` and the steps it
+    ran."""
+    if lookahead is None:
+        lookahead = CUDA_LOOKAHEAD if root_vecs.is_cuda else 0
+    rnd = _Round(prop, root_vecs, pins, lookahead)
+    queue = _RoundQueue()
+    queue.submit(rnd)
+    return queue.wait(rnd), rnd.queued
 
 
 class _ReplayState:
@@ -1196,7 +1272,7 @@ def _turbo(model, vocab, avocab, root_vecs, device, T, beam, max_nodes,
         for j, b in enumerate(cols[:n_p]):
             for t, pin in enumerate(states[b].pins):
                 pins[:, t, j] = pin
-        prop = _proposer(model, vocab, mask, tabs, beam, T_r, nb)
+        prop = _proposer(Proposer, model, vocab, mask, tabs, beam, T_r, nb)
         rv = root_vecs.index_select(
             0, torch.as_tensor(cols, dtype=torch.int64, device=device))
         ch['round'] = _Round(prop, rv, pins, ahead)
@@ -1256,6 +1332,323 @@ def _turbo(model, vocab, avocab, root_vecs, device, T, beam, max_nodes,
     return results, smiles_out
 
 
+# the hier turbo decode's per-sample budgets (JAX ``decode_hier_turbo``'s
+# defaults): atoms, bond rows and in-rows an atom; a graft that would
+# outrun one poisons its sample, which then takes the exact path
+HIER_A_BUDGET, HIER_EG_BUDGET, HIER_NBG_BUDGET = 256, 384, 8
+
+
+def hier_budgets(vocab: PairVocab, avocab: Vocab,
+                 a_budget: int = HIER_A_BUDGET,
+                 eg_budget: int = HIER_EG_BUDGET,
+                 nbg_budget: int = HIER_NBG_BUDGET) -> tuple:
+    """A ``HierProposer``'s budgets: atoms, bond rows, in-rows an atom, and
+    cluster rows a node, KE = min(64, 2·max(nbond) + 2): a graft records
+    two rows a motif bond, so that covers every trackable motif of the
+    vocab (JAX decode.py:1373)."""
+    nbond = _vocab_entry(vocab, avocab)['np']['nbond']
+    return (a_budget, eg_budget, nbg_budget,
+            min(64, 2 * int(nbond.max()) + 2))
+
+
+def _hier_candidate(cluster, kind, slot):
+    """The host's candidate atom run of the device's (kind, slot) code
+    (JAX decode.py:1177): kind 0 a one-point or forward pair starting at
+    ``slot``, kind 2 a reverse pair."""
+    n = len(cluster)
+    if n == 0:
+        return None
+    if kind == 2:
+        return [cluster[slot % n], cluster[(slot - 1) % n]]
+    return [cluster[slot % n], cluster[(slot + 1) % n]]
+
+
+def _replay_hier(trace_b, root_cls_b, root_icls_b, vocab: PairVocab,
+                 avocab: Vocab, beam: int, max_nodes: int, max_edges: int):
+    """Replay one sample's hier trace with the real chemistry and check
+    every assembly decision (JAX decode.py:1189-1332): that each beam the
+    device skipped had no feasible candidate, that the device's
+    feasibility bit of every enumerated candidate of the committed beam is
+    ``try_add_mol``'s answer (an oracle false negative would change the
+    best feasible candidate), and that the chosen candidate is feasible.
+    Returns ('done', smiles) or ('diverge', None): a hier sample that
+    diverges takes the exact path whole (its trace carries no candidate
+    scores to resolve it)."""
+    tree = IncTree(1, max_nodes=max_nodes, max_edges=max_edges, max_nb=12,
+                   max_sub_nodes=32)
+    graph = IncGraph(avocab, 1, max_nodes=max_nodes,
+                     max_edges=max_edges + 100)
+    stack: List[int] = []
+    clab, ilab = int(root_cls_b), int(root_icls_b)
+    super_root = tree.add_node()
+    root_idx = tree.add_node((clab, ilab))
+    tree.add_edge(super_root, root_idx)
+    stack.append(root_idx)
+    try:
+        new_atoms, new_bonds, attached = graph.add_mol(
+            0, vocab.get_ismiles(ilab), [], 0)
+    except Exception:
+        # an ungraftable root fragment: no molecule
+        return 'done', None
+    tree.register_cgraph(root_idx, new_atoms, new_bonds, attached)
+
+    K = beam
+    for t in range(trace_b.shape[0]):
+        if not stack:
+            break
+        if not trace_b[t, 1] > 0.5:
+            child = stack.pop()
+            if stack:
+                top = stack[-1]
+                tree.add_edge(child, top, (child, top, tree.in_degree(top)))
+            continue
+        parent = stack[-1]
+        new_node = tree.add_node()
+        tree.add_edge(parent, new_node, (parent, new_node, 0))
+        stack.append(new_node)
+        cls_topk = trace_b[t, 2 + K:2 + 2 * K].astype(np.int32)
+        icls_topk = trace_b[t, 2 + 2 * K:2 + 3 * K].astype(np.int32)
+        dev_j = int(trace_b[t, 2 + 3 * K])
+        kind = int(trace_b[t, 2 + 3 * K + 2])
+        slot = int(trace_b[t, 2 + 3 * K + 3])
+
+        def beam_has_valid(kk):
+            try:
+                ismiles = vocab.get_ismiles(int(icls_topk[kk]))
+                fa_cluster, _, fa_used = tree.get_cluster(parent)
+                cands, _, attach_points = graph.get_assm_cands(
+                    fa_cluster, fa_used, ismiles)
+                return any(graph.try_add_mol(0, ismiles,
+                                             list(zip(list(c), attach_points)))
+                           for c in cands[:HIER_CAND_CAP])
+            except Exception:
+                return False
+
+        # the beams the device skipped must have no feasible assembly
+        if any(beam_has_valid(kk) for kk in range(K if dev_j < 0 else dev_j)):
+            return 'diverge', None
+        if dev_j < 0:
+            _forced_backtrack(tree, [stack], 0)
+            continue
+        clab_j, ilab_j = int(cls_topk[dev_j]), int(icls_topk[dev_j])
+        try:
+            ismiles = vocab.get_ismiles(ilab_j)
+            tree.set_node_feature(new_node, (clab_j, ilab_j))
+            fa_cluster, _, fa_used = tree.get_cluster(parent)
+            cands, _, attach_points = graph.get_assm_cands(
+                fa_cluster, fa_used, ismiles)
+            # each enumerated candidate's (kind, slot) code: its real
+            # feasibility must be the device's bit
+            fmask = [int(trace_b[t, 2 + 3 * K + i]) for i in (4, 5, 6)]
+            fc = list(fa_cluster)
+            n_fc = len(fc)
+            for c in cands[:HIER_CAND_CAP]:
+                cl = list(c)
+                if cl[0] not in fc:
+                    return 'diverge', None
+                s0 = fc.index(cl[0])
+                if s0 >= ORACLE_SLOTS:
+                    return 'diverge', None
+                if len(cl) == 1:
+                    dev_ok = (fmask[0] >> s0) & 1
+                elif n_fc == 2:
+                    # the forward and reverse runs of a 2-atom cluster
+                    # coincide: the device may code the pair as either
+                    dev_ok = ((fmask[1] | fmask[2]) >> s0) & 1
+                elif cl[-1] == fc[(s0 + 1) % n_fc]:
+                    dev_ok = (fmask[1] >> s0) & 1
+                elif cl[-1] == fc[(s0 - 1) % n_fc]:
+                    dev_ok = (fmask[2] >> s0) & 1
+                else:
+                    return 'diverge', None
+                if bool(dev_ok) != graph.try_add_mol(
+                        0, ismiles, list(zip(cl, attach_points))):
+                    return 'diverge', None
+            want = _hier_candidate(fc, kind, slot)
+            chosen = None
+            if want is not None:
+                for c in cands[:HIER_CAND_CAP]:
+                    cl = list(c)
+                    if (len(cl) == 1 and cl[0] == want[0]) or \
+                            (len(cl) >= 2 and cl[0] == want[0] and
+                             cl[-1] == want[1]):
+                        chosen = cl
+                        break
+            if chosen is None:
+                return 'diverge', None
+            pairs = list(zip(chosen, attach_points))
+            if not graph.try_add_mol(0, ismiles, pairs):
+                return 'diverge', None
+            nth_child = 0 if len(cands) == 1 else tree.in_degree(parent)
+            new_atoms, new_bonds, attached = graph.add_mol(
+                0, ismiles, pairs, nth_child)
+            tree.register_cgraph(new_node, new_atoms, new_bonds, attached)
+            tree.update_attached(parent, pairs)
+        except Exception:
+            return 'diverge', None
+    smiles = graph.get_smiles()
+    return 'done', (smiles[0] if smiles else None)
+
+
+def _unfinished(trace_b, beam: int) -> bool:
+    """A short rung's trace ends with the sample's stack alive (its depth
+    replayed from the choices and committed beams)."""
+    depth = 1
+    for row in trace_b:
+        if depth <= 0:
+            return False
+        if row[1] > 0.5:
+            depth += 1 if row[2 + 3 * beam] >= 0 else -1
+        else:
+            depth -= 1
+    return depth > 0
+
+
+@torch.inference_mode()
+def decode_hier_turbo(model, vocab: PairVocab, avocab: Vocab, root_vecs,
+                      greedy: bool = True, max_decode_step: int = 150,
+                      beam: int = 5, max_nodes: int = 400,
+                      max_edges: int = 500,
+                      rng: Optional[np.random.Generator] = None,
+                      log_steps: bool = False,
+                      ladder: Optional[tuple] = None,
+                      chunk: Optional[int] = None,
+                      a_budget: int = HIER_A_BUDGET,
+                      eg_budget: int = HIER_EG_BUDGET,
+                      nbg_budget: int = HIER_NBG_BUDGET):
+    """The device-resident speculative decode of the hier family (JAX
+    decode.py:1335-1473).  Each round runs the whole loop on the device
+    (``HierDecoder.propose_step_``, a ``HierProposer``: the three-level
+    message passing, candidates scored against the live atom hiddens and
+    the valence oracle, one CUDA graph replay a step on the card) and
+    fetches one trace, which the host replays and checks with the real
+    chemistry (``_replay_hier``).  A sample that is poisoned (it grafted a
+    motif the device cannot track, or would outrun ``a_budget`` atoms,
+    ``eg_budget`` bond rows, or its cluster rows) or whose replay
+    diverges takes the exact path, ``decode_hier``, whole; a sample whose
+    stack outlives a short rung re-enters at the next rung, from scratch.
+    ``ladder`` and ``chunk`` as in ``decode_motif_turbo``.  Stochastic
+    decoding and per-step logs take the exact path.
+
+    ``TURBO_STATS`` holds the motif turbo's keys (``eager_steps`` counts
+    the captures' eager steps), ``fallback_causes`` ([sample, 'poisoned'
+    or 'diverged'] of each sample that fell back, in the order they did)
+    and ``exact_steps``, the steps of the exact decode of the samples that
+    fell back.  A propose step launches
+    ``nei_sum`` four times, an exact step five times."""
+    if not greedy or log_steps:
+        return decode_hier(model, vocab, avocab, root_vecs, greedy=greedy,
+                           max_decode_step=max_decode_step, beam=beam,
+                           max_nodes=max_nodes, max_edges=max_edges, rng=rng,
+                           log_steps=log_steps)
+    device = next(model._decoder().parameters()).device
+    if not isinstance(root_vecs, torch.Tensor):
+        root_vecs = torch.from_numpy(np.array(root_vecs, dtype=np.float32))
+    root_vecs = root_vecs.to(device, torch.float32)
+    with _lock:
+        return _hier_turbo(model, vocab, avocab, root_vecs, device,
+                           max_decode_step, beam, max_nodes, max_edges, rng,
+                           ladder, chunk, (a_budget, eg_budget, nbg_budget))
+
+
+def _hier_turbo(model, vocab, avocab, root_vecs, device, T, beam, max_nodes,
+                max_edges, rng, ladder, chunk, budgets):
+    cuda = device.type == 'cuda'
+    batch_size = root_vecs.shape[0]
+    tabs, mask = _device_vocab(vocab, avocab, device)
+    budgets = hier_budgets(vocab, avocab, *budgets)
+    if ladder is None:
+        ladder = CUDA_LADDER if cuda else CPU_LADDER
+    ahead = CUDA_LOOKAHEAD if cuda else 0
+    rungs = sorted({min(r, T) for r in ladder} | {T})
+
+    smiles_out: List[Optional[str]] = [None] * batch_size
+    results: List[list] = [[] for _ in range(batch_size)]
+    fallback: List[int] = []
+    TURBO_STATS.clear()
+    TURBO_STATS.update(rounds=0, batch=batch_size, fallbacks=0,
+                       fallback_causes=[], pending_per_round=[], rungs=[],
+                       steps=[], steps_run=[], eager_steps=0, exact_steps=0,
+                       wait_s=[], replay_s=[])
+    if chunk is None or chunk >= batch_size:
+        chunk = batch_size
+    chunks = [{'pending': list(range(i, min(i + chunk, batch_size))),
+               'ri': 0, 'size': chunk}
+              for i in range(0, batch_size, chunk)]
+    queue = _RoundQueue()
+
+    def dispatch(ch):
+        """Queue one propose round for a chunk at its rung."""
+        pending, ri = ch['pending'], ch['ri']
+        T_r = rungs[ri]
+        TURBO_STATS['rungs'].append(T_r)
+        TURBO_STATS['pending_per_round'].append(len(pending))
+        TURBO_STATS['rounds'] = max(TURBO_STATS['rounds'], ri + 1)
+        n_p = len(pending)
+        nb = 16 if (ri and n_p <= 16 and ch['size'] > 16) else ch['size']
+        cols = pending + [pending[0]] * (nb - n_p)
+        prop = _proposer(HierProposer, model, vocab, mask, tabs, beam, T_r,
+                         nb, budgets=budgets)
+        rv = root_vecs.index_select(
+            0, torch.as_tensor(cols, dtype=torch.int64, device=device))
+        ch['round'] = _Round(prop, rv, None, ahead)
+        queue.submit(ch['round'])
+        ch['cols'], ch['n_p'], ch['final'] = cols, n_p, T_r == T
+
+    inflight = deque()
+    for ch in chunks:                 # every chunk's first round, then fetch
+        dispatch(ch)
+        inflight.append(ch)
+    while inflight:
+        ch = inflight.popleft()
+        t0 = time.perf_counter()
+        packed, root_cls, root_icls, n_run, poisoned = queue.wait(ch['round'])
+        TURBO_STATS['wait_s'].append(time.perf_counter() - t0)
+        TURBO_STATS['steps'].append(n_run)
+        TURBO_STATS['steps_run'].append(ch['round'].queued)
+        ch['round'] = None
+        t0 = time.perf_counter()
+        still = []
+        for j, b in enumerate(ch['cols'][:ch['n_p']]):
+            if poisoned[j]:
+                fallback.append(b)
+                TURBO_STATS['fallback_causes'].append([b, 'poisoned'])
+            elif not ch['final'] and _unfinished(packed[:, j], beam):
+                still.append(b)
+            else:
+                status, out = _replay_hier(packed[:, j], root_cls[j],
+                                           root_icls[j], vocab, avocab, beam,
+                                           max_nodes, max_edges)
+                if status == 'done':
+                    smiles_out[b] = out
+                else:
+                    fallback.append(b)
+                    TURBO_STATS['fallback_causes'].append([b, 'diverged'])
+            queue.pump()
+        TURBO_STATS['replay_s'].append(time.perf_counter() - t0)
+        if still:
+            # the rungs end with T (final), so a chunk with samples still
+            # alive always has a next rung
+            ch['pending'] = still
+            ch['ri'] += 1
+            dispatch(ch)
+            inflight.append(ch)
+
+    TURBO_STATS['fallbacks'] = len(fallback)
+    if fallback:
+        res2, sm2 = decode_hier(
+            model, vocab, avocab,
+            root_vecs.index_select(0, torch.as_tensor(fallback,
+                                                      device=device)),
+            greedy=True, max_decode_step=T, beam=beam, max_nodes=max_nodes,
+            max_edges=max_edges, rng=rng, log_steps=False)
+        for j, b in enumerate(fallback):
+            smiles_out[b] = sm2[j]
+            results[b] = res2[j]
+        TURBO_STATS['exact_steps'] = HIER_STATS['steps']
+    return results, smiles_out
+
+
 def decode_steps(results) -> int:
     """Device steps an exact decode made, from its per-step entries
     (``decode_motif``'s results, with or without logs): one for the root,
@@ -1267,13 +1660,14 @@ def decode_steps(results) -> int:
 
 def decode_best(model, vocab: PairVocab, avocab: Vocab, root_vecs,
                 greedy: bool = True, log_steps: bool = False, **kwargs):
-    """The JAX package's ``decode_best``: for the motif family greedy
-    decodes without per-step logs take the turbo path (which takes
-    ``chunk``), everything else the exact one.  The hier family takes the
-    exact path, ``decode_hier``, greedy or not: the JAX package sends its
-    greedy decodes to ``decode_hier_turbo``, which gives the same SMILES
-    (``tests/test_torch_hier.py``) and is ROADMAP A5's next item."""
+    """The JAX package's ``decode_best``: greedy decodes without per-step
+    logs take the family's turbo path (``decode_hier_turbo`` for the hier
+    family, ``decode_motif_turbo`` otherwise; both take ``chunk``),
+    everything else the exact one (``decode_hier`` / ``decode_motif``)."""
     if is_hier(model):
+        if greedy and not log_steps:
+            return decode_hier_turbo(model, vocab, avocab, root_vecs,
+                                     greedy=True, **kwargs)
         kwargs.pop('chunk', None)
         return decode_hier(model, vocab, avocab, root_vecs, greedy=greedy,
                            log_steps=log_steps, **kwargs)

@@ -18,8 +18,8 @@ policy; chip_smoke.py runs it at ``OPTIMIZE_SETTINGS``) has no flag here.
 ``--hier`` adds ``hier_profiles``: the trained ``hier-prop`` checkpoint's
 encode of the 64 molecules (host tensorize ms, encode wall ms, device busy
 ms, ``nei_sum`` and ``gather_rows`` launches an encode by the wrappers and
-by the device events) and its exact decode of their latents
-(``profile_decode``'s ``hier`` path).  Prints one JSON object (and writes it to ``--out`` if given).  Needs a CUDA device;
+by the device events) and its decode of their latents, exact and turbo
+(``profile_decode``'s ``hier`` and ``hier-turbo`` paths).  Prints one JSON object (and writes it to ``--out`` if given).  Needs a CUDA device;
 it has no CPU mode.
 """
 
@@ -106,10 +106,13 @@ def kernel_of(key: str):
 @dataclass
 class DeviceEvents:
     """The device events of one name in a profiled run: ``key`` the name,
-    ``count`` the launches, ``self_device_time_total`` their µs."""
+    ``count`` the launches, ``self_device_time_total`` their µs, and
+    ``graph_count`` the launches made by CUDA graph replays (the events
+    whose correlation id is a ``cudaGraphLaunch`` call's)."""
     key: str
     count: int = 0
     self_device_time_total: float = 0.0
+    graph_count: int = 0
 
 
 def profiled(fn, reps: int = 1):
@@ -119,16 +122,23 @@ def profiled(fn, reps: int = 1):
     events would only add to the processing.  The events are summed from
     the profiler's raw records: ``key_averages`` builds a Python object a
     record, about 60 µs each, a minute for a hier training epoch's
-    920,000."""
+    920,000.  A kernel that a graph replay launched shares its correlation
+    id with the replay's ``cudaGraphLaunch`` runtime event."""
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
-    by_name = {}
+    by_name, corrs, graph_launches = {}, {}, set()
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
             agg = by_name.setdefault(e.name(), DeviceEvents(e.name()))
             agg.count += 1
             agg.self_device_time_total += e.duration_ns() / 1e3
+            corrs.setdefault(e.name(), []).append(e.correlation_id())
+        elif e.name().startswith('cudaGraphLaunch'):
+            graph_launches.add(e.correlation_id())
+    if graph_launches:
+        for name, agg in by_name.items():
+            agg.graph_count = sum(c in graph_launches for c in corrs[name])
     events = list(by_name.values())
     return sum(_device_us(e) for e in events) / reps, events
 
@@ -169,29 +179,41 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
     """One greedy decode of latents ``z`` on the card through ``path``:
     ``turbo`` (``decode_motif_turbo``, which ``/reconstruct`` and
     ``/sample`` take), ``exact`` (``decode_motif`` without logs) or, for a
-    hier model, ``hier`` (``decode_hier`` without logs), after
-    one untimed decode of the same latents (first use of the shapes on the
-    card, the turbo path's graph captures, the chemistry's caches).
+    hier model, ``hier-turbo`` (``decode_hier_turbo``, which the family's
+    ``/reconstruct`` and ``/sample`` take) and ``hier`` (the exact
+    ``decode_hier`` without logs), after one untimed decode of the same
+    latents (first use of the shapes on the card, the turbo paths' graph
+    captures, the chemistry's caches).
 
     From the timed run (host clock, ending in a synchronize): wall time,
     molecules/s, and the host split: seconds in the chemistry
-    (``_try_assemble``) and the rest, and of the rest in writing the
-    SMILES (``IncGraph.get_smiles``); ``nei_sum`` launches; for ``exact``
-    and ``hier`` its steps (and for ``hier`` its ``hdec_assm`` calls); for ``turbo`` the rounds, fallbacks, rungs, pending samples,
-    steps active and run per round, the steps run outside the rounds, and
-    the seconds waiting for traces and replaying them.  From a profiled
-    repeat: device busy time, kernel launches, and ``nei_sum_kernel``'s
-    device launches and µs per launch, beside the launches the ``nei_sum``
-    wrapper counted in it.  The idle share is one minus busy over the
-    unprofiled wall time."""
-    turbo = path == 'turbo'
-    if path not in ('turbo', 'exact', 'hier'):
+    (``_try_assemble``; for ``hier-turbo`` the ``IncGraph`` calls of the
+    replays and of the exact path) and the rest, and of the rest in
+    writing the SMILES (``IncGraph.get_smiles``); ``nei_sum`` launches; for
+    ``exact`` and ``hier`` its steps (and for ``hier`` its ``hdec_assm``
+    calls); for the turbo paths the rounds, fallbacks, rungs, pending
+    samples, steps active and run per round, the steps run outside the
+    rounds, and the seconds waiting for traces and replaying them (for
+    ``hier-turbo`` also the exact path's steps, the ``nei_sum`` launches
+    the decode must make, ``expected_nei_sum_launches``: four a propose
+    step run, eager or replayed, five an exact step, and one profiled
+    propose round, ``profile_round``).  From a profiled repeat: device
+    busy time, kernel launches, and ``nei_sum_kernel``'s device launches
+    (of them, those made by CUDA graph replays) and µs per launch, beside
+    the launches the ``nei_sum`` wrapper counted in it.  The idle share is one minus busy over the unprofiled wall
+    time."""
+    paths = ('turbo', 'exact', 'hier', 'hier-turbo')
+    if path not in paths:
         raise ValueError(f'profile_decode: no decode path {path!r}')
+    turbo = path in ('turbo', 'hier-turbo')
 
     def run():
-        if turbo:
+        if path == 'turbo':
             out = decode.decode_motif_turbo(model, vocab, common_atom_vocab,
                                             z, greedy=True, **decode_kwargs)
+        elif path == 'hier-turbo':
+            out = decode.decode_best(model, vocab, common_atom_vocab, z,
+                                     greedy=True, **decode_kwargs)
         elif path == 'hier':
             out = decode.decode_hier(model, vocab, common_atom_vocab, z,
                                      greedy=True, log_steps=False,
@@ -205,8 +227,12 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
 
     run()
     launches = nei_sum.launches
-    with _timed(decode, '_try_assemble', {}) as acc, \
-            _timed(inc_graph.IncGraph, 'get_smiles', acc):
+    chem_calls = ('get_assm_cands', 'try_add_mol', 'add_mol') \
+        if path == 'hier-turbo' else ()
+    with contextlib.ExitStack() as timers:
+        acc = timers.enter_context(_timed(decode, '_try_assemble', {}))
+        for name in chem_calls + ('get_smiles',):
+            timers.enter_context(_timed(inc_graph.IncGraph, name, acc))
         t0 = time.perf_counter()
         results, smiles = run()
         wall = time.perf_counter() - t0
@@ -217,6 +243,8 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
     counted = nei_sum.launches - counted
     nei = [e for e in events if 'nei_sum_kernel' in e.key]
     chem = acc['_try_assemble']
+    if path == 'hier-turbo':
+        chem = sum(acc[name] for name in chem_calls + ('get_smiles',))
     out = dict(path=path, n_mols=len(smiles), wall_s=wall,
                mols_per_s=len(smiles) / wall,
                valid=sum(s is not None for s in smiles),
@@ -227,6 +255,7 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
                device_launches=sum(e.count for e in events),
                nei_sum_launches=launches,
                nei_sum_device_launches=sum(e.count for e in nei),
+               nei_sum_graph_device_launches=sum(e.graph_count for e in nei),
                profiled_nei_sum_launches=counted,
                nei_sum_device_us_per_launch=(
                    sum(_device_us(e) for e in nei) / sum(e.count for e in nei)
@@ -239,14 +268,67 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
                                    'steps_run', 'eager_steps', 'wait_s',
                                    'replay_s')},
             other_host_s=wall - sum(stats['wait_s']) - sum(stats['replay_s']))
-    else:
+    if path == 'hier-turbo':
+        out.update(exact_steps=stats['exact_steps'],
+                   expected_nei_sum_launches=hier_turbo_launches(stats),
+                   smiles=smiles,
+                   round=profile_round(model, vocab, z, **decode_kwargs))
+    elif not turbo:
         steps = decode.decode_steps(results)
         out.update(steps=steps, ms_per_step=1e3 * wall / steps,
                    chemistry_ms_per_step=1e3 * chem / steps)
         if path == 'hier':
             out.update(assm_calls=stats['assm_calls'],
-                       nei_sum_per_step=launches / steps)
+                       nei_sum_per_step=launches / steps, smiles=smiles)
     return out
+
+
+def hier_turbo_launches(stats: dict) -> int:
+    """``nei_sum`` launches of a ``decode_hier_turbo`` call from its
+    ``TURBO_STATS``: four a propose step, run eagerly (the step before each
+    graph's capture) or replayed from a graph (``steps_run``, the
+    lookahead's steps past the last active one included), and five a step
+    of the exact path that the samples which fell back take.  A capture itself
+    launches nothing."""
+    return 4 * (sum(stats['steps_run']) + stats['eager_steps']) + \
+        5 * stats['exact_steps']
+
+
+def profile_round(model, vocab, z, max_decode_step: int = 150,
+                  beam: int = 5) -> dict:
+    """One propose round of the hier turbo decode over ``z`` (the
+    ``HierProposer`` of that width at the full rung, replayed from its
+    captured graph as ``decode_hier_turbo`` runs it, after an unprofiled
+    round) under the profiler: steps run, host ms a step (the round's wall
+    time over its steps), device busy ms a step, device launches a step
+    and ``nei_sum_kernel``'s device launches a step."""
+    z = torch.as_tensor(z, device='cuda')
+    tabs, mask = decode._device_vocab(vocab, common_atom_vocab, z.device)
+    with torch.inference_mode():
+        prop = decode._proposer(
+            decode.HierProposer, model, vocab, mask, tabs, beam,
+            max_decode_step, len(z),
+            budgets=decode.hier_budgets(vocab, common_atom_vocab))
+    queued = []
+
+    def run():
+        with torch.inference_mode():
+            queued.append(decode.propose_round(prop, z)[1])
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    busy_us, events = profiled(run)
+    steps = queued[-1]
+    return dict(steps_run=steps, host_ms_per_step=1e3 * wall / steps,
+                device_ms_per_step=busy_us / 1e3 / steps,
+                device_idle_share=1.0 - busy_us / 1e6 / wall,
+                device_launches_per_step=sum(e.count for e in events) / steps,
+                nei_sum_device_launches_per_step=sum(
+                    e.count for e in events if 'nei_sum_kernel' in e.key) /
+                steps)
 
 
 def optimize_targets(rows):
@@ -357,16 +439,14 @@ def propose_sweep(model, vocab, z, T: int = 150, reps: int = 5) -> dict:
             times = []
             for _ in range(reps if graph else 1):
                 t0 = time.perf_counter()
-                rnd = decode._Round(prop, z, pins, ahead)
-                queue = decode._RoundQueue()
-                queue.submit(rnd)
-                *_, n_run = queue.wait(rnd)
+                (*_, n_run), queued = decode.propose_round(prop, z, pins,
+                                                           ahead)
                 times.append(1e3 * (time.perf_counter() - t0))
             rows.append(dict(graph=graph, lookahead=ahead,
                              capture_s=capture_s,
                              round_ms=float(np.median(times)),
-                             steps=n_run, steps_run=rnd.queued))
-            del prop, rnd, queue
+                             steps=n_run, steps_run=queued))
+            del prop
     ladders = {}
     for ladder in ((), (64,), (32, 64)):
         decode.decode_motif_turbo(model, vocab, common_atom_vocab, z,
@@ -408,7 +488,7 @@ def main(argv=None) -> dict:
     ap.add_argument('--propose-sweep', action='store_true')
     ap.add_argument('--hier', action='store_true',
                     help='also profile the hier-prop checkpoint\'s encode '
-                         'and exact decode of the 64 molecules')
+                         'and decodes (exact and turbo) of the 64 molecules')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_serve needs a CUDA device')
@@ -431,6 +511,9 @@ def main(argv=None) -> dict:
         hrows = prune_to_vocab(read_csv_data(args.data), hvocab,
                                verbose=False)[:N_MOLS]
         out['hier'] = hier_profiles(hmodel, hvocab, hrows)
+        out['hier']['decode_turbo'] = profile_decode(
+            hmodel, hvocab, hier_latents(hmodel, hvocab, hrows),
+            'hier-turbo')
     text = json.dumps(out)
     print(text, flush=True)
     if args.out:
@@ -515,17 +598,24 @@ def encode_profile(model, vocab, rows) -> dict:
         top_device_kernels=top_kernels(events, REPS))
 
 
+def hier_latents(model, vocab, rows) -> torch.Tensor:
+    """The latents [len(rows), latent] of ``rows`` by a hier ``model``."""
+    batch = to_model_batch(tensorize(rows, vocab, common_atom_vocab),
+                           vocab.mask, pad=False)
+    return encode(model, batch)[0]
+
+
 def hier_profiles(model, vocab, rows) -> dict:
     """The hier family's serve path on the card: ``encode_profile`` of
     ``model`` (the trained ``hier-prop`` checkpoint on the card) over
     ``rows`` (SMILES, HOMO, LUMO), and ``profile_decode``'s ``hier`` path
-    over their latents (the exact decode, which ``/reconstruct`` and
-    ``/sample`` take for the family)."""
-    batch = to_model_batch(tensorize(rows, vocab, common_atom_vocab),
-                           vocab.mask, pad=False)
-    z = encode(model, batch)[0]
+    over their latents (the exact decode, which beam and logged decodes
+    and the turbo path's fallbacks take)."""
     return dict(encode=encode_profile(model, vocab, rows),
-                decode=profile_decode(model, vocab, z, 'hier'))
+                decode=profile_decode(model, vocab,
+                                      hier_latents(model, vocab, rows),
+                                      'hier'))
+
 
 if __name__ == '__main__':
     main()

@@ -462,18 +462,23 @@ def test_non_greedy_decode_full_width(trained):
 
 def _hier_routes(trained, monkeypatch):
     """``decode_best`` of a hier model, greedy or not, with or without
-    logs, with the motif paths refusing it: the keyword arguments of each
-    call that reached ``decode_hier``."""
+    logs, with the motif paths refusing it: for each call that reached a
+    hier path, the path (``decode_hier_turbo`` or ``decode_hier``) and its
+    keyword arguments."""
     class HierPropOptVAE:
         pass
     calls = []
 
     def refuse(*a, **kw):
         raise AssertionError('a motif path took a hier model')
+
+    def record(path):
+        return lambda *a, **kw: calls.append((path, kw)) or ([], [])
     monkeypatch.setattr(decode, 'decode_motif', refuse)
     monkeypatch.setattr(decode, 'decode_motif_turbo', refuse)
-    monkeypatch.setattr(decode, 'decode_hier',
-                        lambda *a, **kw: calls.append(kw) or ([], []))
+    monkeypatch.setattr(decode, 'decode_hier', record('decode_hier'))
+    monkeypatch.setattr(decode, 'decode_hier_turbo',
+                        record('decode_hier_turbo'))
     for greedy, logs in ((True, False), (True, True), (False, False)):
         decode.decode_best(HierPropOptVAE(), trained['vocab'],
                            common_atom_vocab, trained['z'], greedy=greedy,
@@ -490,12 +495,17 @@ def test_decode_best_refuses_the_hier_family(trained, monkeypatch):
 
 def test_decode_best_routes_the_hier_family_to_decode_hier(trained,
                                                            monkeypatch):
-    """A hier model goes to the exact hier path, greedy or not, with or
-    without logs, without the turbo path's ``chunk``."""
+    """A hier model's greedy decode without logs goes to the hier turbo
+    path, with the turbo path's ``chunk``, as the JAX package's
+    ``decode_best`` sends it; a decode with logs, or a sampled one, to the
+    exact hier path, without ``chunk``."""
     calls = _hier_routes(trained, monkeypatch)
-    assert [(c['greedy'], c['log_steps']) for c in calls] == \
-        [(True, False), (True, True), (False, False)]
-    assert not any('chunk' in c for c in calls)
+    assert [(path, kw.get('greedy'), kw.get('log_steps', False))
+            for path, kw in calls] == [
+        ('decode_hier_turbo', True, False), ('decode_hier', True, True),
+        ('decode_hier', False, False)]
+    assert calls[0][1]['chunk'] == 8
+    assert not any('chunk' in kw for _, kw in calls[1:])
 
 
 @pytest.fixture(scope='module')

@@ -390,15 +390,19 @@ def test_every_hier_kernel_call_has_its_site(small):
                            max_decode_step=40)
     steps = decode.HIER_STATS['steps']
     assert steps > 5
+    # (the turbo decode's propose sites, and its graph replays, unused)
+    unused = {**{site: 0 for site in kernel_bench.HIER_PROPOSE_NAMES},
+              'replay': 0}
     assert {k: v['calls'] for k, v in enc.items()} == {
         **{site: 1 for site, _ in kernel_bench.HIER_ENCODE_SITES},
         **{site: 0 for site, _ in kernel_bench.HIER_STEP_SITES},
         'atom-gather': SMALL['depthG'], 'tree-gather': 2 * SMALL['depthT'],
-        None: 0}
+        None: 0, **unused}
     assert {k: v['calls'] for k, v in dec.items()} == {
         **{site: steps for site, _ in kernel_bench.HIER_STEP_SITES},
         **{site: 0 for site in kernel_bench.HIER_SITE_NAMES
-           if site not in dict(kernel_bench.HIER_STEP_SITES)}, None: 0}
+           if site not in dict(kernel_bench.HIER_STEP_SITES)}, None: 0,
+        **unused}
     assert not any(v['launches'] for v in (*enc.values(), *dec.values()))
     # the wrappers are put back
     assert (encoder.nei_sum, hier_decoder.nei_sum, rnn.gather_rows) == \

@@ -113,10 +113,9 @@ def _round(model, vocab, z, pins, T, lookahead=0):
     with torch.inference_mode():
         prop = decode.Proposer(model, mask, tabs, BEAM, T, len(z),
                                graph=False)
-        rnd = decode._Round(prop, torch.from_numpy(z), pins, lookahead)
-        queue = decode._RoundQueue()
-        queue.submit(rnd)
-        return queue.wait(rnd), rnd.queued, prop.carry
+        out, queued = decode.propose_round(prop, torch.from_numpy(z), pins,
+                                           lookahead)
+        return out, queued, prop.carry
 
 
 def _propose_both(setup, z, pins, T):

@@ -55,11 +55,8 @@ def _round(model, mask, tabs, z, pins, graph):
     """One propose round over latents ``z``: replayed from a CUDA graph
     with the turbo decode's lookahead, or eagerly one step at a time."""
     prop = decode.Proposer(model, mask, tabs, BEAM, T, len(z), graph=graph)
-    rnd = decode._Round(prop, z, pins,
-                        decode.CUDA_LOOKAHEAD if graph else 0)
-    queue = decode._RoundQueue()
-    queue.submit(rnd)
-    return queue.wait(rnd)
+    return decode.propose_round(prop, z, pins,
+                                decode.CUDA_LOOKAHEAD if graph else 0)[0]
 
 
 @pytest.mark.parametrize('batch', [64, 120])
