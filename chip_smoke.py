@@ -249,6 +249,48 @@ script exits non-zero:
              launches in the counted decodes, and ``nei_sum``'s
              ``hier_turbo_replays`` the graph replays' launches there by
              the device events (and the exact step's sites' launches).
+13. sched+att — the rest of property optimisation (the counts reset just
+             before and read just after).  ``prop-opt-sched``
+             (``profile_train.sched_trainer``: ``finetune_trainer``'s
+             settings, the full checkpoint in a ``PropOptSchedulingVAE``,
+             tf_ratio 1 as the ``Trainer`` steps it): its first 3 steps
+             held to ``goldens/train_propsched_hopv.json`` (which
+             tests/test_torch_sched.py recomputes) by the prop-opt
+             fine-tuning rule; one tf_ratio 0.5 forward and backward on
+             the first batch with the golden's coins on the card and on
+             the CPU port (``profile_train.sched_step``), held by
+             ``check_sched_step`` (the fed-back predictions the CPU
+             port's but at a named fp32 near-tie, printed with its
+             margin; the metrics the golden's; the gradients the CPU
+             port's); one epoch eager and one through ``scan_steps``'
+             graphs bit for bit, each replayed step launching ``nei_sum``
+             / ``transpose_sum`` / ``gather_rows`` 3 / 22 / 20 times by
+             the wrappers and the device events (``graph_vs_eager``); a
+             graph epoch profiled (``sched graph``: the replayed step's
+             wall and device ms beside prop-opt's); and ``nei_sum`` and
+             its transpose at the scheduled readout
+             (``kernel_bench.sched_cases``) against the plain version and
+             the in-order sum, timed as in phase 4 (the kernels line's
+             ``sched_sites``, whose launches are those made at the
+             readout and in its backward during the steps above, counted
+             at the call by ``kernel_bench.sched_site``, each eager
+             launch of one with one of the other; a replay's are in the
+             device events).  Then prop-opt and hier-prop with
+             ``use_attention`` (``profile_train.attention_trainer``: the
+             trained checkpoints, heads seeded with ``HEADS_SEED``): 3
+             golden steps each (``goldens/train_propopt_att_hopv.json``
+             by the prop-opt rule, ``train_hier_att_hopv.json`` by
+             ``hier_rule``; tests/test_torch_attention.py recomputes
+             them), their peak memory, and ``graph_vs_eager`` on the
+             first two batches of one signature, each replay launching
+             3 / 23 / 20 (the node readout's transpose, which the
+             attention memory makes the loss read) or
+             ``hier_step_launches`` by the wrappers and the device events
+             (``att|hier att graph vs eager``, with each replay's wall
+             and device ms).
+             Last ``decode_motif`` with the attention memory of the 16
+             molecules of ``goldens/decode_att_hopv16.json`` (the JAX
+             package's strings) by phase 6's rule.
 
 The line before the last is ``nvidia-smi``'s; the one before it a JSON
 object listing every kernel; the last line is
@@ -270,7 +312,7 @@ import torch
 from ggpm_tpu_torch import kernel_bench, profile_serve, profile_train
 from ggpm_tpu_torch.bridge import load_model
 from ggpm_tpu_torch.chem import canon_smiles
-from ggpm_tpu_torch.data.batching import to_model_batch
+from ggpm_tpu_torch.data.batching import to_model_batch, train_tables
 from ggpm_tpu_torch.data.dataset import prune_to_vocab, read_csv_data
 from ggpm_tpu_torch.graph.mol_graph import tensorize
 from ggpm_tpu_torch.graph.vocab import common_atom_vocab
@@ -287,6 +329,7 @@ from ggpm_tpu_torch.profile_serve import (HIER_CKPT, HIER_VOCAB,
                                           optimize_targets, profile_decode,
                                           profile_optimize, profiled)
 from ggpm_tpu_torch.serve import GgpmServer
+from ggpm_tpu_torch.train.loop import flushes, signature, to_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, 'runs', 'QUALITY_hopv.json.ckpt')
@@ -305,6 +348,14 @@ HIER_TURBO_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                                  'hier_turbo_prior120.json')
 HIER_TRAIN_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                                  'train_hier_hopv.json')
+SCHED_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
+                            'train_propsched_hopv.json')
+ATT_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
+                          'train_propopt_att_hopv.json')
+HIER_ATT_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
+                               'train_hier_att_hopv.json')
+DECODE_ATT_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
+                                 'decode_att_hopv16.json')
 HIER_FINETUNE_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                                     'train_hier_propopt_hopv.json')
 N_MOLS = 64
@@ -335,6 +386,9 @@ OPT_PRED_ATOL = 1e-4
 # root and frontier readouts; their transposes and the depth loop's 20
 # rounds' (2 + 20); the 20 rounds
 STEP_LAUNCHES = {'nei_sum': 3.0, 'transpose_sum': 22.0, 'gather_rows': 20.0}
+# with the attention heads (phase 13) the node readout's transpose too:
+# the attention memory reads the node hiddens, which no loss read before
+ATT_LAUNCHES = dict(STEP_LAUNCHES, transpose_sum=23.0)
 # the profiled epochs of the train and finetune phases, in turns: eager,
 # graph (PR 11's four turns, eager, graph, graph, eager, cut to two so that
 # the hier train phase fits the run's time)
@@ -733,10 +787,10 @@ def golden_train_epoch(name, trainer, make, batches, golden_path, **rule):
     return turns[False][0], counts, turns, check
 
 
-def graph_vs_eager(name, make, batches, expected=STEP_LAUNCHES):
-    """Two epochs from the same checkpoint in the JAX order, once eager
-    and once through graphs (``Trainer.scan_steps``; the first epoch
-    captures one graph per signature, the second replays only): every
+def graph_vs_eager(name, make, batches, expected=STEP_LAUNCHES, epochs=2):
+    """``epochs`` epochs from the same checkpoint in the JAX order, once
+    eager and once through graphs (``Trainer.scan_steps``; the first epoch
+    captures one graph per signature, a second replays only): every
     step's metrics, breaker flag and group norms, and the parameters,
     Adam moments and counts after, must be equal bit for bit.  Then every
     replayed step runs again in a profiler window of its own: each must
@@ -745,7 +799,8 @@ def graph_vs_eager(name, make, batches, expected=STEP_LAUNCHES):
     events in each window that lost no records in the profiler
     (``profile_train.check_replay_windows``; the windows that did are
     printed).  Prints and returns the signatures captured, the
-    capture seconds, the graphs' pools and the peak memory."""
+    capture seconds, the graphs' pools, the peak memory and each replay
+    window's wall ms (under the profiler) and device busy ms."""
     rows, states = {}, {}
     for graph in (False, True):
         tr = make()
@@ -753,16 +808,12 @@ def graph_vs_eager(name, make, batches, expected=STEP_LAUNCHES):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         rows[graph] = []
-        for _ in range(2):
+        for _ in range(epochs):
             profile_train.run_epoch(tr, groups, graph, rows[graph])
         torch.cuda.synchronize()
-        opt = getattr(tr.opt_state, 'groups', {'': tr.opt_state})
-        states[graph] = {f'{g}/{k}': getattr(st, k).clone()
-                         for g, st in opt.items()
-                         for k in ('flat', 'mu', 'nu', 'count_dev')}
+        states[graph] = opt_states(tr)
         if not graph:
             del tr
-    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
     differ = [f'step {i} {k}' for i, (e, g) in enumerate(
         zip(rows[False], rows[True])) for k in e
         if not torch.equal(bits(e[k]), bits(g[k]))]
@@ -779,15 +830,31 @@ def graph_vs_eager(name, make, batches, expected=STEP_LAUNCHES):
                launches_per_replayed_step=windows[0]['launches'],
                device_launches_per_replayed_step=max(
                    windows, key=lambda w: w['records'])['device'],
-               windows_with_lost_records=lost)
+               windows_with_lost_records=lost,
+               replayed_step_wall_ms=[w['wall_ms'] for w in windows],
+               replayed_step_device_ms=[w['device_busy_ms']
+                                        for w in windows])
     print(f'{name} graph vs eager ' + json.dumps(out), flush=True)
-    if differ or len(rows[True]) != 2 * len(batches):
+    if differ or len(rows[True]) != epochs * len(batches):
         raise AssertionError(f'{name}: graph and eager epochs differ at '
                              f'{differ[:20]}')
     if bad:
         raise AssertionError(f'{name}: replayed steps (step, count, '
                              f'launches) {bad}, expected {expected}')
     return out
+
+
+def bits(t):
+    """A float32 tensor's bits, to compare bit for bit."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def opt_states(tr):
+    """Copies of a trainer's parameters, Adam moments and device counts,
+    by group."""
+    opt = getattr(tr.opt_state, 'groups', {'': tr.opt_state})
+    return {f'{g}/{k}': getattr(st, k).clone() for g, st in opt.items()
+            for k in ('flat', 'mu', 'nu', 'count_dev')}
 
 
 def device_scalars(trainer):
@@ -853,12 +920,14 @@ def hier_step_launches(cfg):
     ``gather_rows`` the three depth loops' D = depthG + 2·depthT rounds and
     the scan's U = 2·(diterG + 2·diterT) message-update gathers a step;
     ``transpose_sum`` the backward of each of those but the motif level's
-    node readout, which the loss does not read, and five gathers of step
-    0 whose states need no gradient yet."""
+    node readout, which the loss does not read unless the attention heads
+    do (``use_attention``: its memory), and five gathers of step 0 whose
+    states need no gradient yet."""
     d = cfg.depthG + 2 * cfg.depthT
     u = 2 * (cfg.diterG + 2 * cfg.diterT)
+    node = float(cfg.use_attention)
     return lambda T: {'nei_sum': 5.0 + 5 * T,
-                      'transpose_sum': 4.0 + d + (5 + u) * T - 5,
+                      'transpose_sum': 4.0 + node + d + (5 + u) * T - 5,
                       'gather_rows': float(d + u * T)}
 
 
@@ -922,6 +991,180 @@ def hier_train_phase(floor):
             kernel_bench.hier_train_cases(batch, gen), floor)):
         rows.setdefault(row['kernel'], {})[row['case']] = row
     return profs, counts, rows, check
+
+
+def first_pair(trainer, batches):
+    """The first two of ``batches`` that the trainer steps through in one
+    flush (one signature), for ``graph_vs_eager``."""
+    keyed = [(signature(trainer.host_batch(b)), b) for b in batches]
+    return next([b for _, b in group[:2]]
+                for group in flushes(keyed, lambda x: x[0])
+                if len(group) > 1)
+
+
+def sched_att_phase(vocab, batches, floor):
+    """Phase 13: prop-opt-sched and the attention models (docstring).
+    Returns the phase's summary, the launches of its paths, the kernel rows
+    at the scheduled readout and the calls and launches counted there
+    (``kernel_bench.sched_site``)."""
+    summary, seconds = {}, {}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        t = time.perf_counter()
+        seconds[name] = t - t_part[0]
+        t_part[0] = t
+    reset_counts()
+    # 1. prop-opt-sched: the golden steps, the tf_ratio 0.5 step, the
+    # graph check and the replayed step's profile, each launch at the
+    # scheduled readout counted where it is made
+    with open(SCHED_GOLDEN) as f:
+        golden = json.load(f)
+    with kernel_bench.sched_site() as site:
+        trainer, _ = profile_train.sched_trainer('cuda', vocab)
+        steps = profile_train.golden_steps('cuda', trainer, batches)
+        bad = profile_train.check_golden(
+            steps, golden,
+            later_update_rtol=profile_train.FINETUNE_LATER_UPDATE_RTOL)
+        print('sched golden ' + json.dumps(dict(
+            steps=[{k: v for k, v in s.items() if k != 'update_norms'}
+                   for s in steps],
+            update_deviation=profile_train.update_deviation(steps, golden),
+            failures=bad)), flush=True)
+        if bad:
+            raise AssertionError(f'sched steps differ from the JAX '
+                                 f'package\'s: {bad}')
+        host = trainer.host_batch(batches[0])
+        got = profile_train.sched_step(
+            profile_train.sched_model(vocab)[0].to('cuda'),
+            trainer.device_batch(host),
+            profile_train.sched_coins(golden, 'cuda'))
+        cpu = profile_train.sched_step(
+            profile_train.sched_model(vocab)[0],
+            to_device(train_tables(host), 'cpu'),
+            profile_train.sched_coins(golden, 'cpu'))
+        bad, ties = profile_train.check_sched_step(got, cpu, golden)
+        summary['sched_step'] = dict(
+            metrics=got['metrics'], golden=golden['sched_step']['metrics'],
+            fed_back=int(cpu['use'].sum()), near_ties=ties, failures=bad,
+            grad_deviation=profile_train.grad_deviation(got, cpu))
+        print('sched tf0.5 step ' + json.dumps(summary['sched_step']),
+              flush=True)
+        if bad:
+            raise AssertionError(f'sched tf_ratio 0.5 step: {bad}')
+        del got, cpu
+        part('sched golden and tf0.5 step')
+        summary['graph'] = graph_vs_eager(
+            'sched', lambda: profile_train.sched_trainer('cuda', vocab)[0],
+            batches, epochs=1)
+        part('sched graph vs eager')
+        prof = profile_train.profile_epoch(trainer, batches, graph=True)
+        summary['profile'] = prof
+        print('sched graph ' + json.dumps(prof), flush=True)
+        if prof['kernel_launches_per_step'] != STEP_LAUNCHES:
+            raise AssertionError(f'sched: launches per step '
+                                 f'{prof["kernel_launches_per_step"]}, '
+                                 f'expected {STEP_LAUNCHES}')
+    print('sched readout site ' + json.dumps(site), flush=True)
+    if not site['sched-readout']['launches'] == \
+            site['sched-readout-bwd']['launches'] > 0:
+        raise AssertionError(f'sched: the readout\'s launches and its '
+                             f'backward\'s differ, or none: {site}')
+    rows = {}
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    for row in checked(kernel_bench.measure(kernel_bench.sched_cases(
+            trainer.device_batch(host), gen), floor)):
+        rows.setdefault(row['kernel'], {})[row['case']] = row
+    del trainer
+    torch.cuda.empty_cache()
+    part('sched profile and kernels')
+
+    # 2. the attention models: golden steps and the graph check of the
+    # first two batches of one signature each
+    hvocab = profile_train.load_vocab_file(HIER_VOCAB)
+    _, hbatches = profile_train.hopv_batches(profile_train.GOLDEN_STEPS,
+                                             hvocab)
+    for name, hier, path, bs in (('att', False, ATT_GOLDEN, batches),
+                                 ('hier att', True, HIER_ATT_GOLDEN,
+                                  hbatches)):
+        v = hvocab if hier else vocab
+        with open(path) as f:
+            att_golden = json.load(f)
+        tr, _ = profile_train.attention_trainer('cuda', hier, v)
+        torch.cuda.reset_peak_memory_stats()
+        steps = profile_train.golden_steps('cuda', tr, bs)
+        peak = torch.cuda.max_memory_allocated()
+        rule = (profile_train.hier_rule() if hier else dict(
+            later_update_rtol=profile_train.FINETUNE_LATER_UPDATE_RTOL))
+        bad = profile_train.check_golden(steps, att_golden, **rule)
+        print(f'{name} golden ' + json.dumps(dict(
+            steps=[{k: x for k, x in s.items() if k != 'update_norms'}
+                   for s in steps], max_memory_allocated=peak,
+            update_deviation=profile_train.update_deviation(steps,
+                                                            att_golden),
+            failures=bad)), flush=True)
+        if bad:
+            raise AssertionError(f'{name} steps differ from the JAX '
+                                 f'package\'s: {bad}')
+        expected = (hier_step_launches(tr.model.cfg) if hier
+                    else ATT_LAUNCHES)
+        pair = first_pair(tr, bs)
+        del tr
+        summary[name] = graph_vs_eager(
+            name, lambda: profile_train.attention_trainer('cuda', hier, v)[0],
+            pair, expected, epochs=1)
+        summary[name]['golden_max_memory_allocated'] = peak
+        torch.cuda.empty_cache()
+        part(name)
+
+    # 3. decode_motif with the attention memory of the 16 golden molecules
+    with open(DECODE_ATT_GOLDEN) as f:
+        dgold = json.load(f)
+    model = profile_train.attention_model(vocab=vocab)[0].eval().to('cuda')
+    model_cpu = profile_train.attention_model(vocab=vocab)[0].eval()
+    drows = prune_to_vocab(read_csv_data(DATA), vocab,
+                           verbose=False)[:len(dgold['inputs'])]
+    if [r[0] for r in drows] != dgold['inputs']:
+        raise AssertionError('the attention decode golden is not for these '
+                             'molecules')
+    batch = to_model_batch(tensorize(drows, vocab, common_atom_vocab),
+                           vocab.mask, pad=False)
+
+    def att_decode(m, device, logs):
+        z, _ = encode(m, batch)
+        with torch.no_grad():
+            mem, scope = m.encode_attention_memory(
+                to_device(batch['tree'], device))
+        return decode.decode_motif(m, vocab, common_atom_vocab, z,
+                                   max_decode_step=dgold['max_decode_step'],
+                                   log_steps=logs, src_mem=mem,
+                                   src_scope=scope)
+
+    def logs(m, device):
+        memo = []
+        return lambda: memo[0] if memo else memo.append(
+            att_decode(m, device, True)[0]) or memo[0]
+
+    t0 = time.perf_counter()
+    _, smiles = att_decode(model, 'cuda', False)
+    decode_s = time.perf_counter() - t0
+    differ = check_decode('att-reconstruct', smiles, dgold['reconstruct'],
+                          logs(model, 'cuda'), logs(model_cpu, 'cpu'))
+    summary['decode'] = dict(seconds=decode_s, differ_from_jax=differ,
+                             validity=sum(x is not None for x in smiles) /
+                             len(smiles))
+    print('att decode ' + json.dumps(summary['decode']), flush=True)
+    if len(differ) > MAX_DIFFERING:
+        raise AssertionError(f'{len(differ)} attention decode strings '
+                             f'differ from the JAX reference')
+    counts = read_counts()
+    if min(counts.values()) == 0:
+        raise AssertionError(f'a kernel never launched on the phase 13 '
+                             f'paths: {counts}')
+    summary['launches'] = counts
+    part('att decode')
+    print('sched+att seconds ' + json.dumps(seconds), flush=True)
+    return summary, counts, rows, site
 
 
 def optimize_requests(server, port, rows, golden):
@@ -1580,10 +1823,16 @@ def main() -> int:
     t0 = time.perf_counter()
     hturbo_summary, htbcounts, hturbo_rows, hturbo_sites, hturbo_replays = \
         hier_turbo_phase(floor_ms())
+    phase('hier turbo', t0)
+
+    t0 = time.perf_counter()
+    sa_summary, sacounts, sched_rows, sched_site = sched_att_phase(
+        vocab, train_batches, floor_ms())
     counts = {name: counts[name] + dcounts[name] + ocounts[name] +
               hcounts[name] + tcounts[name] + fcounts[name] +
-              htcounts[name] + htbcounts[name] for name in counts}
-    phase('hier turbo', t0)
+              htcounts[name] + htbcounts[name] + sacounts[name]
+              for name in counts}
+    phase('sched+att', t0)
 
     keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
             'bound_by', 'floor_ms', 'host_ms')
@@ -1609,7 +1858,12 @@ def main() -> int:
                 'train': train_check['launches_per_replayed_step'][name],
                 'finetune': ft_check['launches_per_replayed_step'][name],
                 'hier_train': htrain_check['launches_per_replayed_step'][
-                    name]},
+                    name],
+                'sched': sa_summary['graph']['launches_per_replayed_step'][
+                    name],
+                'att': sa_summary['att']['launches_per_replayed_step'][name],
+                'hier_att': sa_summary['hier att'][
+                    'launches_per_replayed_step'][name]},
             launches_per_hier_train_step={
                 mode: hier_profs[graph]['kernel_launches_per_step'][name]
                 for mode, graph in (('eager', False), ('graph', True))},
@@ -1618,7 +1872,8 @@ def main() -> int:
                 x['max_abs_err'] for x in list(rows_of.values()) +
                 list(hier_rows.get(name, {}).values()) +
                 list(htrain_rows.get(name, {}).values()) +
-                list(hturbo_rows.get(name, {}).values())),
+                list(hturbo_rows.get(name, {}).values()) +
+                list(sched_rows.get(name, {}).values())),
             call_sites=k['call_sites'], case=k['main_case'],
             **({'turbo_decode': in_graph, 'per_optimize_request': {
                 p: o['nei_sum_launches'] for p, o in opt_summary.items()},
@@ -1641,7 +1896,12 @@ def main() -> int:
                 {key: row[key] for key in keys}, shape=row['shape'],
                 launches=hturbo_sites[case],
                 replaces=HIER_PROPOSE_SITES[case.split('-B')[0]])
-                for case, row in hturbo_rows.get(name, {}).items()}))
+                for case, row in hturbo_rows.get(name, {}).items()},
+            sched_sites={case: dict(
+                {key: row[key] for key in keys}, shape=row['shape'],
+                launches=sched_site[case]['launches'],
+                replaces=kernel_bench.SCHED_SITE)
+                for case, row in sched_rows.get(name, {}).items()}))
     print(f'total {time.perf_counter() - t_all:.1f}s', flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)

@@ -16,7 +16,8 @@ family's trees have the same layout (``params/E_c``,
 ``params/encoder/graph_encoder/...``, ``params/decoder/...``; a
 ``hier-prop-opt`` tree nests them under ``hier/`` beside
 ``property_optim/``), and ``load_model`` tells the four families apart by
-their trees.
+their trees, and a model with attention heads by its ``A_mem``.  A
+``prop-opt-sched`` tree is a prop-opt one, and loads as ``PropOptVAE``.
 """
 
 from __future__ import annotations
@@ -337,13 +338,22 @@ def model_class(tree: Mapping):
     return PropertyVAE
 
 
+def has_attention(tree: Mapping) -> bool:
+    """Whether a checkpoint's tree holds the attention heads: ``A_mem``
+    in the VAE's subtree (``vae/``, ``hier/`` or the root)."""
+    params = tree.get('params', tree)
+    vae = params.get('vae', params.get('hier', params))
+    return 'A_mem' in vae
+
+
 def load_model(ckpt_path: str, vocab_path: str, device: str = 'cuda'
                ) -> Tuple[torch.nn.Module, PairVocab]:
     """The trained model of a checkpoint (the family its tree holds,
     ``model_class``) and its vocab file, in eval mode on ``device``.  The
     configuration is ``ModelConfig``'s defaults with the vocab's sizes,
-    loss scaling where the checkpoint holds ``loss_weigh``, and for the
-    hier family ``HIER_TRAINED``."""
+    loss scaling where the checkpoint holds ``loss_weigh``, the attention
+    heads where it holds ``A_mem`` (``has_attention``), and for the hier
+    family ``HIER_TRAINED``."""
     vocab = load_vocab_file(vocab_path)
     hvocab, ivocab = vocab.size()
     tree = read_checkpoint(ckpt_path)
@@ -352,6 +362,7 @@ def load_model(ckpt_path: str, vocab_path: str, device: str = 'cuda'
     model = cls(ModelConfig(
         hvocab_size=hvocab, ivocab_size=ivocab,
         loss_scaling='loss_weigh' in tree.get('params', tree),
+        use_attention=has_attention(tree),
         **(HIER_TRAINED if hier else {})))
     load_flax_params(model, tree)
     return model.eval().to(device), vocab

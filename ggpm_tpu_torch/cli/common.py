@@ -1,6 +1,7 @@
 """Shared CLI plumbing: config → vocab → model (counterpart of
-``ggpm_tpu/cli/common.py``).  The port trains, fine-tunes and serves the
-``prop``, ``prop-opt``, ``hier-prop`` and ``hier-prop-opt`` models."""
+``ggpm_tpu/cli/common.py``).  The port trains, fine-tunes and serves every
+model of the JAX registry: ``prop``, ``prop-opt``, ``hier-prop``,
+``hier-prop-opt`` and ``prop-opt-sched``."""
 
 from __future__ import annotations
 
@@ -16,33 +17,29 @@ from ..configs import Configs
 from ..data.dataset import read_csv_data
 from ..graph.vocab import PairVocab, load_vocab_file
 from ..models.vae import (HierPropertyVAE, HierPropOptVAE, ModelConfig,
-                          PropertyVAE, PropOptVAE, init_params)
+                          PropertyVAE, PropOptSchedulingVAE, PropOptVAE,
+                          init_params)
 from ..train import checkpoint as ckpt
 
 __all__ = ['load_checkpoint', 'maybe_load_pretrained', 'read_csv_data',
            'setup_model', 'write_csv']
 
-# model types of the JAX registry (ggpm_tpu/models/vae.py:OPVNet) that the
-# port does not have, and the ROADMAP item that brings each
-NOT_PORTED = {'prop-opt-sched': 'A4'}
+# the JAX registry (ggpm_tpu/models/vae.py:OPVNet)
 MODELS = {'prop': PropertyVAE, 'prop-opt': PropOptVAE,
-          'hier-prop': HierPropertyVAE, 'hier-prop-opt': HierPropOptVAE}
+          'hier-prop': HierPropertyVAE, 'hier-prop-opt': HierPropOptVAE,
+          'prop-opt-sched': PropOptSchedulingVAE}
 
 
 def setup_model(configs: Configs, model_type: str, seed: int = 1
                 ) -> Tuple[Union[PropertyVAE, PropOptVAE, HierPropertyVAE,
-                                 HierPropOptVAE], PairVocab, ModelConfig]:
+                                 HierPropOptVAE, PropOptSchedulingVAE],
+                           PairVocab, ModelConfig]:
     """Load the vocab and build the model, initialised as flax initialises
     the JAX package's from a generator seeded with ``seed``; returns
     (model, vocab, config) on the CPU."""
-    item = NOT_PORTED.get(model_type)
-    if item:
-        raise NotImplementedError(
-            f'model type {model_type!r}: the port has the prop, prop-opt, '
-            f'hier-prop and hier-prop-opt models; {model_type} is ROADMAP '
-            f'{item}')
     if model_type not in MODELS:
-        raise ValueError(f'Model {model_type} does not exist')
+        raise ValueError(f'Model {model_type} does not exist '
+                         f'(have: {sorted(MODELS)})')
     vocab = load_vocab_file(configs.vocab_)
     mcfg = ModelConfig.from_configs(configs, vocab)
     model = MODELS[model_type](mcfg)

@@ -8,7 +8,7 @@ Usage:
 Encodes each test molecule (the config's ``test_data``, else ``data``)
 without latent noise, decodes greedily, and writes the config's ``output``
 CSV (default ``reconstructions.csv``: original and reconstructed SMILES,
-and the predicted HOMO/LUMO when the model has property heads) and a
+and the predicted HOMO/LUMO for ``prop-opt`` and ``hier-prop-opt``) and a
 pickle of the per-step decode logs beside it.  ``--fast-decode`` takes the
 turbo decode (the same SMILES, no per-step logs; the hier family decodes
 through its exact path either way).  Runs on the card
@@ -53,7 +53,8 @@ def main(argv=None):
     model = model.eval().to(args.device)
     data = read_csv_data(configs.get('test_data') or configs.get('data'))
     dataset = MoleculeDataset(data, vocab, common_atom_vocab, args.batch_size)
-    has_props = hasattr(model, 'predict_properties')
+    # the JAX CLI's list: prop-opt-sched has heads but counts as none
+    has_props = args.model_type in ('prop-opt', 'hier-prop-opt')
     if args.fast_decode:
         def decode_fn(*a, **kw):
             return decode_best(*a, log_steps=False, **kw)

@@ -621,6 +621,88 @@ def train_cases(batch: dict, gen: torch.Generator, hidden: int = 250
     return cases
 
 
+# the scheduled-sampling scan's frontier readout (MotifDecoder.
+# scheduled_forward), B1's call site in JAX's per-step loop
+SCHED_SITE = 'ggpm_tpu/models/decoder.py:470'
+
+
+@contextlib.contextmanager
+def sched_site():
+    """Count the scheduled readout's calls and kernel launches while the
+    block runs: ``decoder.nei_sum_t`` is replaced by a function that
+    calls it and, where ``MotifDecoder.scheduled_forward``'s frame is on
+    the call's stack at its ``self._readout(`` line, adds the call and
+    the change of ``nei_sum``'s ``launches`` to ``'sched-readout'``, and
+    hooks the output's backward node, whose run adds its call and the
+    change of ``transpose_sum``'s ``launches`` to ``'sched-readout-bwd'``
+    (the autograd engine runs one node of a device at a time).  Yields
+    ``{case: {'calls', 'launches'}}``.  A call recorded by a CUDA graph
+    capture launches nothing, and a replay calls nothing: the launches
+    are those the calls made."""
+    from .models import decoder
+    fn = decoder.MotifDecoder.scheduled_forward
+    src, start = inspect.getsourcelines(fn)
+    at = [start + i for i, line in enumerate(src) if 'self._readout(' in line]
+    if len(at) != 1:
+        raise AssertionError(f'self._readout( is on {len(at)} lines of '
+                             f'scheduled_forward')
+    code, line = fn.__code__, at[0]
+    counts = {case: dict(calls=0, launches=0)
+              for case in ('sched-readout', 'sched-readout-bwd')}
+    original = decoder.nei_sum_t
+
+    def backward_counted():
+        entry, before = counts['sched-readout-bwd'], []
+
+        def pre(grad_outputs):
+            before.append(transpose_sum.launches)
+
+        def post(grad_inputs, grad_outputs):
+            entry['calls'] += 1
+            entry['launches'] += transpose_sum.launches - before.pop()
+        return pre, post
+
+    def call(*args):
+        before = nei_sum.launches
+        out = original(*args)
+        frame = sys._getframe(1)
+        while frame is not None and frame.f_code is not code:
+            frame = frame.f_back
+        if frame is not None and frame.f_lineno == line:
+            counts['sched-readout']['calls'] += 1
+            counts['sched-readout']['launches'] += nei_sum.launches - before
+            if out.grad_fn is not None:
+                pre, post = backward_counted()
+                out.grad_fn.register_prehook(pre)
+                out.grad_fn.register_hook(post)
+        return out
+    decoder.nei_sum_t = call
+    try:
+        yield counts
+    finally:
+        decoder.nei_sum_t = original
+
+
+def sched_cases(batch: dict, gen: torch.Generator, hidden: int = 250
+                ) -> List[dict]:
+    """``nei_sum`` and its transpose at the scheduled scan's readout of a
+    device batch (``Trainer.device_batch`` of a ``prop-opt-sched``
+    model): the sum over the masked frontier table of a state of
+    ``num_mess + B`` rows at width ``hidden`` (``sched-readout``), and
+    ``transpose_sum`` of a gradient over that table's rows
+    (``sched-readout-bwd``, div A), as cases of ``measure``.  Values come
+    from ``gen``."""
+    tree, plan = batch['tree'], batch['plan']
+    fr = plan['frontier']
+    h = random_table(gen, tree['fmess'].shape[0] + tree['scope'].shape[0],
+                     hidden)
+    g = torch.rand((fr.shape[0], hidden), generator=gen,
+                   device=gen.device) * 2 - 1
+    return [nei_sum_case('sched-readout', h, fr),
+            transpose_case('sched-readout-bwd', g, plan['frontier_t'],
+                           plan['frontier_tm'], fr.shape[1])]
+
+
 # the sums of a hier training step (HierMPNEncoder.forward's five readouts,
 # HierDecoder.forward's five per-step sums), each with the JAX line it
 # ports and its table in a ``data.batching.hier_train_tables`` batch:

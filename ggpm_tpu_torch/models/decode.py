@@ -144,25 +144,57 @@ def _upload(device: torch.device, *arrays: np.ndarray):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
+def _check_no_attention(model, has_src: bool = False) -> None:
+    """Refuse to decode a ``use_attention`` model without its encoder
+    attention memory (JAX decode.py:167): its heads were trained on
+    attention contexts.  Only the exact motif path threads the memory."""
+    if model.cfg.use_attention and not has_src:
+        raise NotImplementedError(
+            'this decode path does not thread encoder attention memory: a '
+            'model built with use_attention=True would be decoded with '
+            'contexts its heads were never trained on (see ADVICE r2). '
+            'For reconstruction, pass src_mem/src_scope from '
+            'encode_attention_memory to decode_motif; prior sampling has '
+            'no source molecule, so train without use_attention for it.')
+
+
+def _as_tensor(x, device, dtype=None) -> torch.Tensor:
+    """``x`` (a tensor, an array or nested lists) on ``device`` as
+    ``dtype``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x))
+    return x.to(device, dtype)
+
+
 @torch.inference_mode()
 def decode_motif(model, vocab: PairVocab, avocab: Vocab, root_vecs,
                  greedy: bool = True, max_decode_step: int = 150,
                  beam: int = 5, max_nodes: int = 400, max_edges: int = 500,
                  rng: Optional[np.random.Generator] = None,
-                 log_steps: bool = True):
+                 log_steps: bool = True, src_mem=None, src_scope=None):
     """Decode a batch of latent vectors [B, latent] into molecules on the
-    model's device (the exact path, JAX decode.py:1513).
+    model's device (the exact path, JAX decode.py:1513).  ``src_mem`` and
+    ``src_scope`` (from the model's ``encode_attention_memory``) decode a
+    ``use_attention`` model: its topology and motif heads attend over the
+    encoder's node memory as in training; such a model refuses to decode
+    without them.
 
     Returns (results, smiles_list); ``results[b]`` is a list of per-step log
     dicts mirroring the reference's ``results`` structure
     (decoder.py:924-948, 993, 1035-1036, 1072)."""
     rng = rng or np.random.default_rng(0)
+    _check_no_attention(model, has_src=src_mem is not None)
     dec = model._decoder()
     device = next(dec.parameters()).device
-    if not isinstance(root_vecs, torch.Tensor):
-        root_vecs = torch.from_numpy(np.array(root_vecs, dtype=np.float32))
-    root_vecs = root_vecs.to(device, torch.float32)
+    root_vecs = _as_tensor(root_vecs, device, torch.float32)
     mask = torch.from_numpy(vocab.mask).to(device)
+    src_mask = None
+    if src_mem is not None:
+        # not at the top: decoder.py imports this module
+        from .decoder import scope_mask
+        src_mem = _as_tensor(src_mem, device, torch.float32)
+        src_mask = scope_mask(_as_tensor(src_scope, device),
+                              src_mem.shape[0])
     batch_size = root_vecs.shape[0]
     results = [[] for _ in range(batch_size)]
 
@@ -172,7 +204,7 @@ def decode_motif(model, vocab: PairVocab, avocab: Vocab, root_vecs,
     stack: List[List[int]] = [[] for _ in range(batch_size)]
 
     # --- root prediction (reference decoder.py:914-948) -------------------
-    cls_scores, icls_scores = dec.dec_root_cls(root_vecs)
+    cls_scores, icls_scores = dec.dec_root_cls(root_vecs, src_mem, src_mask)
     root_cls = torch.argmax(cls_scores, dim=-1).cpu().numpy()
     icls_masked = icls_scores.cpu().numpy() + vocab.get_mask(root_cls)
     root_icls = icls_masked.argmax(axis=-1)
@@ -240,7 +272,8 @@ def decode_motif(model, vocab: PairVocab, avocab: Vocab, root_vecs,
                     bt_valid, bt_pos, bt_bg)
         state, packed = dec.dec_step_fused(
             state, d_clab, d_agraph, d_can, d_u, d_rows, d_clab, d_agraph,
-            d_btv, d_clab, d_btpos, d_btbg, root_vecs, mask, beam)
+            d_btv, d_clab, d_btpos, d_btbg, root_vecs, mask, beam, src_mem,
+            src_mask)
         packed = packed.cpu().numpy()      # the step's one host sync
         topo_p = 1.0 / (1.0 + np.exp(-packed[:, 0]))
         choose = packed[:, 1] > 0.5
@@ -320,12 +353,11 @@ def decode_hier(model, vocab: PairVocab, avocab: Vocab, root_vecs,
     the per-step entries (the topology probability, and with
     ``log_steps`` the attached fragment)."""
     rng = rng or np.random.default_rng(0)
+    _check_no_attention(model)
     kn, ke, cand_cap = HIER_KN, HIER_KE, HIER_CAND_CAP
     dec = model._decoder()
     device = next(dec.parameters()).device
-    if not isinstance(root_vecs, torch.Tensor):
-        root_vecs = torch.from_numpy(np.array(root_vecs, dtype=np.float32))
-    root_vecs = root_vecs.to(device, torch.float32)
+    root_vecs = _as_tensor(root_vecs, device, torch.float32)
     mask = torch.from_numpy(vocab.mask).to(device)
     batch_size = root_vecs.shape[0]
     results = [[] for _ in range(batch_size)]
@@ -1218,10 +1250,9 @@ def decode_motif_turbo(model, vocab: PairVocab, avocab: Vocab, root_vecs,
                             max_decode_step=max_decode_step, beam=beam,
                             max_nodes=max_nodes, max_edges=max_edges,
                             rng=rng, log_steps=log_steps)
+    _check_no_attention(model)
     device = next(model._decoder().parameters()).device
-    if not isinstance(root_vecs, torch.Tensor):
-        root_vecs = torch.from_numpy(np.array(root_vecs, dtype=np.float32))
-    root_vecs = root_vecs.to(device, torch.float32)
+    root_vecs = _as_tensor(root_vecs, device, torch.float32)
     with _lock:
         return _turbo(model, vocab, avocab, root_vecs, device,
                       max_decode_step, beam, max_nodes, max_edges, rng,
@@ -1541,10 +1572,9 @@ def decode_hier_turbo(model, vocab: PairVocab, avocab: Vocab, root_vecs,
                            max_decode_step=max_decode_step, beam=beam,
                            max_nodes=max_nodes, max_edges=max_edges, rng=rng,
                            log_steps=log_steps)
+    _check_no_attention(model)
     device = next(model._decoder().parameters()).device
-    if not isinstance(root_vecs, torch.Tensor):
-        root_vecs = torch.from_numpy(np.array(root_vecs, dtype=np.float32))
-    root_vecs = root_vecs.to(device, torch.float32)
+    root_vecs = _as_tensor(root_vecs, device, torch.float32)
     with _lock:
         return _hier_turbo(model, vocab, avocab, root_vecs, device,
                            max_decode_step, beam, max_nodes, max_edges, rng,

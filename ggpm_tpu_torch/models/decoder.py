@@ -1,14 +1,18 @@
 """Motif decoder: the teacher-forced training path and the decode-step
 functions (counterpart of ``ggpm_tpu/models/decoder.py``:
-``PredictionMLP``, ``MotifDecoder`` with its ``forward``/``mean_forward``
-losses, its ``dec_*`` API and the step of the device-resident
-``dec_propose``; attention arrives with a later slice).
+``scope_mask``, ``attend``, ``PredictionMLP``, ``MotifDecoder`` with its
+``forward``/``mean_forward`` losses and their attention heads, the
+scheduled-sampling ``scheduled_forward``, its ``dec_*`` API and the step
+of the device-resident ``dec_propose``).
 
 Training: ``forward`` runs the teacher-forced scan (``_run_scan``), which
 carries only the message state, then the losses (``_losses``).  The scan's
 frontier readouts come after it, as one ``nei_sum_t`` over the host-built
 masked frontier table (``data.batching.frontier_table``): B1's fourth call
-site, with the kernel's transpose as its backward.
+site, with the kernel's transpose as its backward.  ``scheduled_forward``
+runs the same scan with the motif embeddings fed back from the model's
+own predictions, and reads its frontier the same way (B1's site in JAX's
+per-step readout, decoder.py:470).
 
 Each decode step is one call of ``dec_step_fused`` on [B]-shaped inputs that
 the host loop (``models/decode.py``) builds from its growing trees.  The
@@ -25,7 +29,7 @@ without registering them as its own parameters.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,13 +65,100 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.logsumexp(logits, dim=-1) - gold
 
 
+def scope_mask(scope: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """[B, N] membership mask: row n belongs to molecule b iff it lies in
+    b's scope window (JAX decoder.py:43)."""
+    ar = torch.arange(n_rows, device=scope.device)[None, :]
+    return (ar >= scope[:, :1]) & (ar < scope[:, :1] + scope[:, 1:2])
+
+
+def attend(src_mem: torch.Tensor, mask: torch.Tensor, query: torch.Tensor,
+           A: nn.Linear) -> torch.Tensor:
+    """Attention context over per-molecule source memory (JAX
+    decoder.py:50): the scores of ``A(query)`` [..., B, latent] against
+    every row of ``src_mem`` [N, latent], those outside the molecule's
+    scope (``mask`` [..., B, N]) set to ``finfo(float32).min / 4`` before
+    the softmax; returns [..., B, latent].  A row whose mask is all False
+    (a padding slot) gets a uniform softmax, as in JAX."""
+    scores = A(query) @ src_mem.t()
+    scores = torch.where(mask, scores, torch.finfo(scores.dtype).min / 4)
+    return torch.softmax(scores, dim=-1) @ src_mem
+
+
+def _check_writers(buf: torch.Tensor, rows: torch.Tensor,
+                   values: torch.Tensor, limit: Optional[int] = None) -> None:
+    """On the CPU, raise if two writers of one row of ``buf`` write
+    different values: ``index_put`` keeps one arbitrary writer of a
+    repeated row on the card, which is sound only where they agree (row 0,
+    written with zeros, and rows whose inputs coincide).  Rows at or above
+    ``limit`` are a sink that nothing reads, and are not checked."""
+    if buf.device.type == 'cpu' and rows.numel() > 1:
+        if limit is not None:
+            values = values[rows < limit]
+            rows = rows[rows < limit]
+        order = torch.argsort(rows, stable=True)
+        r, v = rows[order], values[order]
+        dup = (r[1:] == r[:-1]).nonzero().flatten()
+        differ = v[dup] != v[dup + 1]
+        if differ.dim() > 1:
+            differ = differ.flatten(1).any(1)
+        if differ.any():
+            raise AssertionError(
+                'duplicate rows written with different values: '
+                f'{sorted(set(r[dup[differ]].tolist()))}')
+
+
+def scatter_rows_(buf: torch.Tensor, rows: torch.Tensor,
+                  values: torch.Tensor) -> None:
+    """``buf[rows] = values`` in place, for ``rows`` [R] and ``values``
+    [R, ...] whose lanes at row 0 hold zeros (``_check_writers``)."""
+    rows = rows.long()
+    _check_writers(buf, rows, values)
+    buf.index_put_((rows,), values)
+
+
+def put_rows(buf: torch.Tensor, rows: torch.Tensor,
+             values: torch.Tensor, limit: Optional[int] = None
+             ) -> torch.Tensor:
+    """``buf`` with ``values`` written at ``rows``, out of place (JAX
+    ``buf.at[rows].set(values)``), under ``scatter_rows_``'s rule; rows at
+    or above ``limit`` are a sink (``_check_writers``)."""
+    rows = rows.long()
+    _check_writers(buf, rows, values, limit)
+    return buf.index_put((rows,), values)
+
+
+def drop_put_(buf: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
+              limit: int) -> None:
+    """JAX ``buf.at[idx].set(values, mode='drop')`` with out-of-bounds
+    lanes pointing at or above ``limit``: ``buf`` holds a sink past
+    ``limit`` (the row or elements it is allocated with beyond the
+    table), which takes those lanes and which nothing reads; the other
+    lanes under ``scatter_rows_``'s rule.  ``buf`` [N, ...] is indexed on
+    its first dimension, ``idx`` [R] and ``values`` [R, ...]."""
+    idx = idx.reshape(-1).long()
+    values = values.reshape((idx.shape[0],) + buf.shape[1:]).to(buf.dtype)
+    _check_writers(buf, idx, values, limit)
+    buf.index_put_((idx,), values)
+
+
 class MotifDecoder(nn.Module):
-    """The JAX ``MotifDecoder`` without attention.  ``matchNN`` and
-    ``W_assm`` score attachments in the training loss only."""
+    """The JAX ``MotifDecoder``.  ``matchNN`` and ``W_assm`` score
+    attachments in the training loss only.  With ``use_attention`` the
+    topology, motif and assembly heads take their context from the
+    encoder's node memory through ``A_topo``, ``A_cls`` and ``A_assm``
+    (JAX decoder.py:116-120) where a caller passes that memory.
+
+    ``sched_hook``, when set, is called at the end of ``scheduled_forward``
+    with a dict: ``emb_buf``, the motif embeddings it fed its last step
+    ([nodes, embed]); ``pred`` and ``margin`` [T, L], each step's motif
+    prediction and the gap between its two largest logits; and ``use``
+    [T, L], the lanes whose prediction was fed back."""
+    sched_hook: Optional[Callable[[Dict[str, torch.Tensor]], None]] = None
 
     def __init__(self, E_c: nn.Embedding, E_i: nn.Embedding, hidden_size: int,
                  latent_size: int, diterT: int = 1,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, use_attention: bool = False):
         super().__init__()
         embed_size = E_c.embedding_dim
         self._embed = (E_c, E_i)   # a tuple: not registered as submodules
@@ -87,6 +178,11 @@ class MotifDecoder(nn.Module):
         self.W_assm = nn.Linear(hidden_size, latent_size)
         if latent_size != hidden_size:
             self.W_root = nn.Linear(latent_size, hidden_size)
+        self.use_attention = use_attention
+        if use_attention:
+            self.A_topo = nn.Linear(hidden_size, latent_size)
+            self.A_cls = nn.Linear(hidden_size, latent_size)
+            self.A_assm = nn.Linear(hidden_size, latent_size)
 
     # -- shared helpers ----------------------------------------------------
     def root_vecs_to_hidden(self, root_vecs: torch.Tensor) -> torch.Tensor:
@@ -118,22 +214,27 @@ class MotifDecoder(nn.Module):
     # -- teacher-forced training loss (reference decoder.py:155-409) -------
     def forward(self, tree: Dict[str, torch.Tensor],
                 plan: Dict[str, torch.Tensor], root_vecs: torch.Tensor,
-                vocab_mask: torch.Tensor):
+                vocab_mask: torch.Tensor,
+                src_mem: Optional[torch.Tensor] = None):
         """(loss, metrics) of a batch whose ``plan`` carries the frontier
         table (``data.batching.train_tables``); packed (``mol_lane``) or
-        unpacked."""
+        unpacked.  ``src_mem`` ([N, latent] encoder node memory) turns the
+        attention heads on for a decoder built with them."""
         topo_vecs, cls_vecs, init_vecs = self._run_scan(tree, plan, root_vecs)
         return self._losses(plan, root_vecs, init_vecs, vocab_mask,
-                            topo_vecs, cls_vecs)
+                            topo_vecs, cls_vecs, scope=tree['scope'],
+                            src_mem=src_mem)
 
     def mean_forward(self, tree: Dict[str, torch.Tensor],
                      plan: Dict[str, torch.Tensor], root_vecs: torch.Tensor,
-                     vocab_mask: torch.Tensor):
+                     vocab_mask: torch.Tensor,
+                     src_mem: Optional[torch.Tensor] = None):
         """``forward`` with the per-sample loss partition ([B]) as a third
         output (reference decoder.py:169-188)."""
         topo_vecs, cls_vecs, init_vecs = self._run_scan(tree, plan, root_vecs)
         return self._losses(plan, root_vecs, init_vecs, vocab_mask,
-                            topo_vecs, cls_vecs, return_per_sample=True)
+                            topo_vecs, cls_vecs, return_per_sample=True,
+                            scope=tree['scope'], src_mem=src_mem)
 
     def _run_scan(self, tree, plan, root_vecs):
         """Teacher-forced state recurrence and readouts (reference
@@ -148,8 +249,6 @@ class MotifDecoder(nn.Module):
         so the final state read through the masked ``plan['frontier']``
         equals the reference's per-step readout."""
         fnode, fmess = tree['fnode'], tree['fmess']
-        bgraph = tree['bgraph_dec']
-        num_mess = fmess.shape[0]
         H = self.hidden_size
 
         init_vecs = self.root_vecs_to_hidden(root_vecs)
@@ -157,35 +256,134 @@ class MotifDecoder(nn.Module):
         hmess_input = torch.cat([hnode_emb[fmess[:, 0].long()],
                                  pos_onehot(fmess[:, 2])], dim=-1)
 
-        zeros = init_vecs.new_zeros((num_mess, 2 * H))
-        S = torch.cat([zeros, torch.cat([init_vecs, torch.zeros_like(
-            init_vecs)], dim=-1)])
-        xid, mess = plan['xid'].long(), plan['mess'].long()
-        T, L = mess.shape
+        S = self._scan_state(fmess.shape[0], init_vecs)
+        mess = plan['mess'].long()
+        T = mess.shape[0]
         valid = (mess > 0)[..., None]
         xp = self.rnn.x_proj(hmess_input)[mess]           # [T, L, 4H]
-        bg_rows = bgraph[mess].long()                     # [T, L, A]
+        bg_rows = tree['bgraph_dec'][mess].long()         # [T, L, A]
         ks = self.rnn.k_h()
         for t in range(T):
             nei = S[bg_rows[t]]                           # [L, A, 2H]
             h, c = self.rnn.step(xp[t], (nei[..., :H], nei[..., H:]), ks)
             upd = torch.where(valid[t], torch.cat([h, c], dim=-1), 0.0)
             S = S.index_put((mess[t],), upd)
-        h_final = S[:, :H].contiguous()
+        return self._readout(S, hnode_emb, plan) + (init_vecs,)
 
+    def _scan_state(self, num_mess: int, init_vecs: torch.Tensor
+                    ) -> torch.Tensor:
+        """The scan's zero state ``[h | c]`` over ``num_mess + B`` rows, the
+        last B rows' ``h`` wired to the latent."""
+        H = self.hidden_size
+        zeros = init_vecs.new_zeros((num_mess, 2 * H))
+        return torch.cat([zeros, torch.cat([init_vecs, torch.zeros_like(
+            init_vecs)], dim=-1)])
+
+    def _readout(self, S: torch.Tensor, hnode_emb: torch.Tensor,
+                 plan: Dict[str, torch.Tensor]):
+        """The scan's frontier and motif readouts from its final state:
+        ``nei_sum_t`` over the masked frontier table (each row is written
+        once, so the final state through the mask is the state each step
+        read), then ``W_node``; and the rows each step wrote."""
+        H = self.hidden_size
+        xid, mess = plan['xid'].long(), plan['mess'].long()
+        T, L = mess.shape
+        h_final = S[:, :H].contiguous()
         nei_msg = nei_sum_t(h_final, plan['frontier'], plan['frontier_t'],
                             plan['frontier_tm']).view(T, L, H)
         topo_vecs = F.relu(self.W_node(torch.cat([hnode_emb[xid], nei_msg],
                                                  dim=-1)))
-        cls_vecs = h_final[mess]
-        return topo_vecs, cls_vecs, init_vecs
+        return topo_vecs, h_final[mess]
+
+    def scheduled_forward(self, tree: Dict[str, torch.Tensor],
+                          plan: Dict[str, torch.Tensor],
+                          root_vecs: torch.Tensor, vocab_mask: torch.Tensor,
+                          tf_ratio: float = 1.0,
+                          coins: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None):
+        """Teacher forcing with scheduled sampling (JAX decoder.py:412-489;
+        the repaired intent of the reference's MotifSchedulingDecoder).
+        At each step, in each lane whose coin is set, the gold motif
+        embedding of the node the step expands is replaced by the
+        embedding of the model's own prediction, ``argmax clsNN([h of the
+        new message | the lane's latent])``, so that later messages out of
+        that node see the model's choice; the losses keep the gold labels.
+
+        ``coins`` [T, L] (bool) are JAX's ``uniform(rng, (T, L)) >
+        tf_ratio``; without them they are drawn from ``generator`` the same
+        way, and at ``tf_ratio`` 1 none is set (nothing is drawn).  The
+        prediction runs every step whatever the coins.  Each message row
+        is written once, at its step, so the frontier readout comes after
+        the loop, as ``_run_scan``'s (``_readout``): it equals JAX's
+        per-step ``nei_sum(h, agraph[x_nodes])``.  The embeddings are a
+        table over the nodes and a sink row past them: a lane whose coin
+        is not set, or that expands nothing, writes the sink, so every
+        node row has at most one writer a step (JAX writes such lanes'
+        own values back, and resets row 0, which no valid lane writes)."""
+        fnode, fmess = tree['fnode'], tree['fmess']
+        n_nodes = fnode.shape[0]
+        H = self.hidden_size
+        E_c = self._embed[0]
+        dev = root_vecs.device
+
+        init_vecs = self.root_vecs_to_hidden(root_vecs)
+        hnode_emb = self.drop(E_c(fnode[:, 0]))
+        S = self._scan_state(fmess.shape[0], init_vecs)
+        mess = plan['mess'].long()
+        T, L = mess.shape
+        if coins is None:
+            coins = (torch.rand((T, L), generator=generator, device=dev)
+                     > tf_ratio if tf_ratio < 1.0 else
+                     torch.zeros((T, L), dtype=torch.bool, device=dev))
+        mol_lane = plan.get('mol_lane')
+        lane_mol = (mol_lane.long() if mol_lane is not None else
+                    torch.arange(root_vecs.shape[0], device=dev)
+                    .expand(T, L))
+        valid = mess > 0
+        src_all = fmess[:, 0].long()[mess]
+        use = coins.bool() & plan['has_cls'].bool() & valid
+        dst_w = torch.where(use, fmess[:, 1].long()[mess], n_nodes)
+        pos_rows = pos_onehot(fmess[:, 2])[mess]          # [T, L, MAX_POS]
+        bg_rows = tree['bgraph_dec'][mess].long()         # [T, L, A]
+        ctx = root_vecs[lane_mol]                         # [T, L, latent]
+        xw = self.rnn.x_weights(hnode_emb.shape[1] + MAX_POS)
+        ks = self.rnn.k_h()
+        emb_buf = torch.cat([hnode_emb, hnode_emb.new_zeros(
+            (1, hnode_emb.shape[1]))])
+        record = [] if self.sched_hook is not None else None
+        for t in range(T):
+            x = torch.cat([emb_buf[src_all[t]], pos_rows[t]], dim=-1)
+            nei = S[bg_rows[t]]                           # [L, A, 2H]
+            h, c = self.rnn.step(self.rnn.x_proj(x, xw),
+                                 (nei[..., :H], nei[..., H:]), ks)
+            v = valid[t][:, None]
+            h, c = torch.where(v, h, 0.0), torch.where(v, c, 0.0)
+            S = S.index_put((mess[t],), torch.cat([h, c], dim=-1))
+            logits = self.clsNN(torch.cat([h, ctx[t]], dim=-1))
+            pred = logits.argmax(-1)
+            emb_buf = put_rows(emb_buf, dst_w[t], E_c(pred), limit=n_nodes)
+            if record is not None:
+                top2 = logits.detach().topk(2, dim=-1).values
+                record.append((pred, top2[:, 0] - top2[:, 1]))
+        if record is not None:
+            self.sched_hook(dict(
+                emb_buf=emb_buf[:n_nodes].detach(), use=use,
+                pred=torch.stack([r[0] for r in record]),
+                margin=torch.stack([r[1] for r in record])))
+        topo_vecs, cls_vecs = self._readout(S, hnode_emb, plan)
+        return self._losses(plan, root_vecs, init_vecs, vocab_mask,
+                            topo_vecs, cls_vecs)
 
     def _losses(self, plan, root_vecs, init_vecs, vocab_mask, topo_vecs,
-                cls_vecs, return_per_sample=False):
+                cls_vecs, return_per_sample=False, scope=None, src_mem=None):
         """Topology BCE, motif and attachment cross-entropies (the
         attachment logits masked by the additive vocab mask) and the
         closed-form assembly loss, summed and divided by the batch size,
-        with the accuracies (reference decoder.py:289-409)."""
+        with the accuracies (reference decoder.py:289-409).  With
+        ``src_mem`` and the attention heads, each head's context is its
+        query's attention over the memory rows of its molecule (``scope``,
+        and ``mol_lane`` for a packed plan), the pad-slot score's a zero
+        query's (JAX decoder.py:304-311, 360-365)."""
         batch_size = root_vecs.shape[0]
         active = plan['active']
         T, L = active.shape
@@ -196,8 +394,19 @@ class MotifDecoder(nn.Module):
         else:
             latent_b = root_vecs[None].expand(T, batch_size, -1)
 
+        att = self.use_attention and src_mem is not None
+        if att:
+            mask = scope_mask(scope, src_mem.shape[0])
+            mask_steps = mask[mol_lane] if mol_lane is not None else mask
+            topo_ctx = attend(src_mem, mask_steps, topo_vecs, self.A_topo)
+            root_cls_ctx = attend(src_mem, mask, init_vecs, self.A_cls)
+            step_cls_ctx = attend(src_mem, mask_steps, cls_vecs, self.A_cls)
+        else:
+            topo_ctx, root_cls_ctx, step_cls_ctx = latent_b, root_vecs, \
+                latent_b
+
         # topology loss (BCE with logits, summed over active steps)
-        topo_logits = self.topo_logit(latent_b, topo_vecs)
+        topo_logits = self.topo_logit(topo_ctx, topo_vecs)
         tlab = plan['tlab'].float()
         topo_bce = torch.clamp(topo_logits, min=0) - topo_logits * tlab + \
             torch.log1p(torch.exp(-torch.abs(topo_logits)))
@@ -208,8 +417,8 @@ class MotifDecoder(nn.Module):
             torch.clamp(active.sum(), min=1)
 
         # motif (cls + icls) loss: the B roots, then every expand step
-        root_cls, root_icls = self.cls_logits(init_vecs, root_vecs)
-        step_cls, step_icls = self.cls_logits(cls_vecs, latent_b)
+        root_cls, root_icls = self.cls_logits(init_vecs, root_cls_ctx)
+        step_cls, step_icls = self.cls_logits(cls_vecs, step_cls_ctx)
         root_clab, root_ilab = plan['root_clab'].long(), plan['root_ilab'].long()
         clab, ilab = plan['clab'].long(), plan['ilab'].long()
         root_icls = root_icls + vocab_mask[root_clab]
@@ -231,8 +440,14 @@ class MotifDecoder(nn.Module):
         # assembly loss, in closed form (module docstring of the reference)
         mvec = self.match_vec(plan['assm_icls'], plan['assm_n_icls'],
                               plan['assm_nth'])
-        s = (self.W_assm(mvec) * latent_b).sum(-1)        # real-cand score
-        p_mol = (self.W_assm.bias * root_vecs).sum(-1)     # pad-slot score
+        if att:
+            assm_ctx = attend(src_mem, mask_steps, mvec, self.A_assm)
+            pad_ctx = attend(src_mem, mask, mvec.new_zeros(
+                (batch_size, self.hidden_size)), self.A_assm)
+        else:
+            assm_ctx, pad_ctx = latent_b, root_vecs
+        s = (self.W_assm(mvec) * assm_ctx).sum(-1)        # real-cand score
+        p_mol = (self.W_assm.bias * pad_ctx).sum(-1)       # pad-slot score
         p = p_mol[mol_lane] if mol_lane is not None else p_mol[None, :]
         nc = plan['assm_nc'].float()
         maxc = plan['max_cls_size'].float()
@@ -291,46 +506,75 @@ class MotifDecoder(nn.Module):
                 s.index_put_((rows,), torch.where(valid, nr, 0.0))
         return state
 
+    def _dec_ctx(self, query: torch.Tensor, head: Optional[nn.Linear],
+                 root_ctx: torch.Tensor, src_mem: Optional[torch.Tensor],
+                 src_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """A decode head's context (JAX decoder.py:521): with encoder node
+        memory and the attention heads, ``query``'s attention over the
+        memory rows of its molecule (``src_mask`` [B, N]), as the training
+        heads take it; otherwise the latent."""
+        if self.use_attention and src_mem is not None:
+            return attend(src_mem, src_mask, query, head)
+        return root_ctx
+
     def dec_topo(self, state: State, v_clab: torch.Tensor,
-                 agraph_rows: torch.Tensor, root_vecs: torch.Tensor
-                 ) -> torch.Tensor:
+                 agraph_rows: torch.Tensor, root_vecs: torch.Tensor,
+                 src_mem: Optional[torch.Tensor] = None,
+                 src_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Frontier-node readout (the ``nei_sum`` kernel over the frontier's
         incoming messages, int32 ``agraph_rows`` [B, A]) and the topology
         logit (expand vs backtrack)."""
         nei = nei_sum(self.rnn.hidden(state), agraph_rows)
         node_h = F.relu(self.W_node(
             torch.cat([self._embed[0](v_clab), nei], dim=-1)))
-        return self.topo_logit(root_vecs, node_h)
+        ctx = self._dec_ctx(node_h, getattr(self, 'A_topo', None), root_vecs,
+                            src_mem, src_mask)
+        return self.topo_logit(ctx, node_h)
 
     def dec_cls(self, state: State, rows: torch.Tensor,
-                root_vecs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                root_vecs: torch.Tensor, src_mem: Optional[torch.Tensor] = None,
+                src_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Motif/attachment logits from the new expand messages."""
-        return self.cls_logits(self.rnn.hidden(state)[rows.long()], root_vecs)
+        h = self.rnn.hidden(state)[rows.long()]
+        ctx = self._dec_ctx(h, getattr(self, 'A_cls', None), root_vecs,
+                            src_mem, src_mask)
+        return self.cls_logits(h, ctx)
 
-    def dec_root_cls(self, root_vecs: torch.Tensor
+    def dec_root_cls(self, root_vecs: torch.Tensor,
+                     src_mem: Optional[torch.Tensor] = None,
+                     src_mask: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.cls_logits(self.root_vecs_to_hidden(root_vecs), root_vecs)
+        init = self.root_vecs_to_hidden(root_vecs)
+        ctx = self._dec_ctx(init, getattr(self, 'A_cls', None), root_vecs,
+                            src_mem, src_mask)
+        return self.cls_logits(init, ctx)
 
     def dec_step_fused(self, state: State, v_clab, agraph_rows, can_expand, u,
                        new_rows, exp_src_clab, exp_bg_rows, bt_valid,
                        bt_src_clab, bt_pos, bt_bg_rows, root_vecs, vocab_mask,
-                       beam: int) -> Tuple[State, torch.Tensor]:
+                       beam: int, src_mem: Optional[torch.Tensor] = None,
+                       src_mask: Optional[torch.Tensor] = None
+                       ) -> Tuple[State, torch.Tensor]:
         """One decode step with both branches' inputs given (reference
         decoder.py:999-1004; JAX decoder.py:568).  The device picks per
         sample: expand iff sigmoid(topo) > u and the frontier can expand,
         else backtrack (a message row only if a backtrack edge exists).
-        ``u`` is 0.5 for greedy decoding or a uniform sample.  Returns the
+        ``u`` is 0.5 for greedy decoding or a uniform sample; ``src_mem``
+        and ``src_mask`` as ``_dec_ctx`` takes them.  Returns the
         state and one packed [B, 2 + 3·beam] f32 array (topo logit, choice,
         beam scores, motif and attachment ids), so that the host syncs once
         per step."""
-        topo_logits = self.dec_topo(state, v_clab, agraph_rows, root_vecs)
+        topo_logits = self.dec_topo(state, v_clab, agraph_rows, root_vecs,
+                                    src_mem, src_mask)
         choose = (torch.sigmoid(topo_logits) > u) & can_expand
         rows = torch.where(choose | bt_valid, new_rows, 0)
         src_clab = torch.where(choose, exp_src_clab, bt_src_clab)
         pos = torch.where(choose, 0, bt_pos)
         bg = torch.where(choose[:, None], exp_bg_rows, bt_bg_rows)
         state = self.dec_update(state, rows, src_clab, pos, bg)
-        cls_scores, icls_scores = self.dec_cls(state, rows, root_vecs)
+        cls_scores, icls_scores = self.dec_cls(state, rows, root_vecs,
+                                               src_mem, src_mask)
         scores, cls_k, icls_k = hier_topk(cls_scores, icls_scores,
                                           vocab_mask, beam)
         packed = torch.cat(

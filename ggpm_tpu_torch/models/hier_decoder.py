@@ -44,7 +44,8 @@ from torch import nn
 from ..graph.mol_graph import MAX_POS
 from ..ops import gather_nd_t, nei_sum, nei_sum_t
 from .decode import HIER_CAND_CAP, hier_topk
-from .decoder import PredictionMLP, _ce
+from .decoder import (PredictionMLP, _ce, attend, drop_put_, put_rows,
+                      scatter_rows_, scope_mask)
 from .encoder import dropout, pos_onehot
 from .rnn import MPNLSTMCell
 
@@ -52,69 +53,19 @@ Level = Tuple[torch.Tensor, torch.Tensor]
 State = Tuple[Level, Level, Level, torch.Tensor, torch.Tensor]
 
 
-def _check_writers(buf: torch.Tensor, rows: torch.Tensor,
-                   values: torch.Tensor, limit: Optional[int] = None) -> None:
-    """On the CPU, raise if two writers of one row of ``buf`` write
-    different values: ``index_put`` keeps one arbitrary writer of a
-    repeated row on the card, which is sound only where they agree (row 0,
-    written with zeros, and rows whose inputs coincide).  Rows at or above
-    ``limit`` are a sink that nothing reads, and are not checked."""
-    if buf.device.type == 'cpu' and rows.numel() > 1:
-        if limit is not None:
-            values = values[rows < limit]
-            rows = rows[rows < limit]
-        order = torch.argsort(rows, stable=True)
-        r, v = rows[order], values[order]
-        dup = (r[1:] == r[:-1]).nonzero().flatten()
-        differ = v[dup] != v[dup + 1]
-        if differ.dim() > 1:
-            differ = differ.flatten(1).any(1)
-        if differ.any():
-            raise AssertionError(
-                'duplicate rows written with different values: '
-                f'{sorted(set(r[dup[differ]].tolist()))}')
-
-
-def scatter_rows_(buf: torch.Tensor, rows: torch.Tensor,
-                  values: torch.Tensor) -> None:
-    """``buf[rows] = values`` in place, for ``rows`` [R] and ``values``
-    [R, ...] whose lanes at row 0 hold zeros (``_check_writers``)."""
-    rows = rows.long()
-    _check_writers(buf, rows, values)
-    buf.index_put_((rows,), values)
-
-
-def put_rows(buf: torch.Tensor, rows: torch.Tensor,
-             values: torch.Tensor) -> torch.Tensor:
-    """``buf`` with ``values`` written at ``rows``, out of place (JAX
-    ``buf.at[rows].set(values)``), under ``scatter_rows_``'s rule."""
-    rows = rows.long()
-    _check_writers(buf, rows, values)
-    return buf.index_put((rows,), values)
-
-
-def drop_put_(buf: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
-              limit: int) -> None:
-    """JAX ``buf.at[idx].set(values, mode='drop')`` with out-of-bounds
-    lanes pointing at or above ``limit``: ``buf`` holds a sink past
-    ``limit`` (the row or elements it is allocated with beyond the
-    table), which takes those lanes and which nothing reads; the other
-    lanes under ``scatter_rows_``'s rule.  ``buf`` [N, ...] is indexed on
-    its first dimension, ``idx`` [R] and ``values`` [R, ...]."""
-    idx = idx.reshape(-1).long()
-    values = values.reshape((idx.shape[0],) + buf.shape[1:]).to(buf.dtype)
-    _check_writers(buf, idx, values, limit)
-    buf.index_put_((idx,), values)
-
-
 class HierDecoder(nn.Module):
-    """The JAX ``HierDecoder`` without attention.  The motif and attachment
-    embeddings are owned by the VAE (``tie_embedding``) and shared with the
-    encoder, so the decoder holds them without registering them."""
+    """The JAX ``HierDecoder``.  The motif and attachment embeddings are
+    owned by the VAE (``tie_embedding``) and shared with the encoder, so
+    the decoder holds them without registering them.  With
+    ``use_attention`` the training heads take their context from the
+    encoder's memories through ``A_topo``, ``A_cls`` (the motif level's)
+    and ``A_assm`` (the atom level's; JAX hier_decoder.py:79-86); the
+    decode steps have no attention (JAX refuses to decode such a model)."""
 
     def __init__(self, E_c: nn.Embedding, E_i: nn.Embedding, hidden_size: int,
                  latent_size: int, atom_vocab_size: int, diterT: int = 1,
-                 diterG: int = 3, dropout_rate: float = 0.0):
+                 diterG: int = 3, dropout_rate: float = 0.0,
+                 use_attention: bool = False):
         super().__init__()
         embed_size = E_c.embedding_dim
         h = hidden_size
@@ -144,6 +95,11 @@ class HierDecoder(nn.Module):
         self.W_assm = nn.Linear(h, latent_size)
         if latent_size != hidden_size:
             self.W_root = nn.Linear(latent_size, h)
+        self.use_attention = use_attention
+        if use_attention:
+            self.A_topo = nn.Linear(h, latent_size)
+            self.A_cls = nn.Linear(h, latent_size)
+            self.A_assm = nn.Linear(h, latent_size)
 
     def root_vecs_to_hidden(self, root_vecs: torch.Tensor) -> torch.Tensor:
         if hasattr(self, 'W_root'):
@@ -198,9 +154,16 @@ class HierDecoder(nn.Module):
 
     def forward(self, tree: Dict[str, torch.Tensor],
                 graph: Dict[str, torch.Tensor], plan: Dict[str, torch.Tensor],
-                root_vecs: torch.Tensor, vocab_mask: torch.Tensor):
+                root_vecs: torch.Tensor, vocab_mask: torch.Tensor,
+                src_tree_mem: Optional[torch.Tensor] = None,
+                src_graph_mem: Optional[torch.Tensor] = None):
         """(loss, metrics) of a batch whose ``plan`` carries the scan's
         per-step tables and transposes (``data.batching.hier_train_tables``).
+        ``src_tree_mem`` / ``src_graph_mem`` (the encoder's motif- and
+        atom-level memories) turn the attention heads on for a decoder
+        built with them: topo and cls attend over the motif level, each
+        assembly candidate's score over the atom level, inside the scan
+        step (JAX hier_decoder.py:239-250).
 
         The scan carries the three levels' message states and the atom and
         attachment node hiddens, each written out of place as JAX's
@@ -218,6 +181,11 @@ class HierDecoder(nn.Module):
         fnode, fmess = tree['fnode'], tree['fmess']
         num_mess = fmess.shape[0]
         H = self.hidden_size
+        att = self.use_attention and src_tree_mem is not None
+        masks = None
+        if att:
+            masks = (scope_mask(tree['scope'], src_tree_mem.shape[0]),
+                     scope_mask(graph['scope'], src_graph_mem.shape[0]))
 
         init_vecs = self.root_vecs_to_hidden(root_vecs)
         ec_emb = self.drop(E_c(fnode[:, 0]))
@@ -320,26 +288,44 @@ class HierDecoder(nn.Module):
                 [cand_h, icls_e[t][:, None].expand(*cand_h.shape[:3], -1),
                  pos_e[t]], dim=-1)))
             cand_vecs = (mvec * k_mask[t]).sum(2) * cand_ok[t]
-            cand_scores.append((self.W_assm(cand_vecs) *
-                                root_vecs[:, None, :]).sum(-1))
+            # per candidate, the atom-level memory of its molecule
+            assm_ctx = (attend(src_graph_mem, masks[1][:, None, :],
+                               cand_vecs, self.A_assm) if att
+                        else root_vecs[:, None, :])
+            cand_scores.append((self.W_assm(cand_vecs) * assm_ctx).sum(-1))
         return self._losses(plan, root_vecs, init_vecs, vocab_mask,
                             torch.stack(topo_vecs), torch.stack(cls_vecs),
-                            torch.stack(cand_scores))
+                            torch.stack(cand_scores),
+                            (src_tree_mem, src_graph_mem) if att else None,
+                            masks)
 
     def _losses(self, plan, root_vecs, init_vecs, vocab_mask, topo_vecs,
-                cls_vecs, cand_scores):
+                cls_vecs, cand_scores, mems=None, masks=None):
         """Topology BCE, motif and attachment cross-entropies (the
         attachment logits masked by the additive vocab mask) and the
         assembly cross-entropy over the real candidate slots and
         ``max_cls_size − nc`` zero-vector pad slots (score ``W_assm(0)·z``),
         summed and divided by the batch size, with the accuracies (JAX
-        hier_decoder.py:262-346).  Nothing is read on the host."""
+        hier_decoder.py:262-346).  With the memories ``mems`` and their
+        scope ``masks``, the heads' contexts are attention contexts, the
+        pad slots' a zero query's over the atom level.  Nothing is read on
+        the host."""
         batch_size = root_vecs.shape[0]
         T = topo_vecs.shape[0]
         latent_b = root_vecs[None].expand(T, batch_size, -1)
         active = plan['active']
+        if mems is not None:
+            (tree_mem, graph_mem), (tmask, gmask) = mems, masks
+            topo_ctx = attend(tree_mem, tmask, topo_vecs, self.A_topo)
+            root_cls_ctx = attend(tree_mem, tmask, init_vecs, self.A_cls)
+            step_cls_ctx = attend(tree_mem, tmask, cls_vecs, self.A_cls)
+            pad_ctx = attend(graph_mem, gmask, root_vecs.new_zeros(
+                (batch_size, self.hidden_size)), self.A_assm)
+        else:
+            topo_ctx, root_cls_ctx, step_cls_ctx, pad_ctx = \
+                latent_b, root_vecs, latent_b, root_vecs
 
-        topo_logits = self.topoNN(torch.cat([topo_vecs, latent_b],
+        topo_logits = self.topoNN(torch.cat([topo_vecs, topo_ctx],
                                             dim=-1))[..., 0]
         tlab = plan['tlab'].float()
         topo_bce = torch.clamp(topo_logits, min=0) - topo_logits * tlab + \
@@ -354,8 +340,8 @@ class HierDecoder(nn.Module):
 
         root_clab, root_ilab = plan['root_clab'].long(), plan['root_ilab'].long()
         clab, ilab = plan['clab'].long(), plan['ilab'].long()
-        root_cls, root_icls = heads(init_vecs, root_vecs)
-        step_cls, step_icls = heads(cls_vecs, latent_b)
+        root_cls, root_icls = heads(init_vecs, root_cls_ctx)
+        step_cls, step_icls = heads(cls_vecs, step_cls_ctx)
         root_icls = root_icls + vocab_mask[root_clab]
         step_icls = step_icls + vocab_mask[clab]
         has_cls = plan['has_cls'].float()
@@ -369,7 +355,7 @@ class HierDecoder(nn.Module):
         icls_acc = ((root_icls.argmax(-1) == root_ilab).sum() +
                     ((step_icls.argmax(-1) == ilab) * has_cls).sum()) / n_cls
 
-        p_score = (self.W_assm.bias * root_vecs).sum(-1)[None, :]   # [1, B]
+        p_score = (self.W_assm.bias * pad_ctx).sum(-1)[None, :]     # [1, B]
         ok = plan['assm_cand_ok']
         nc = plan['assm_nc'].float()
         maxc = plan['max_cls_size'].float()

@@ -1,10 +1,12 @@
 """The VAE models (counterpart of ``ggpm_tpu/models/vae.py``:
-``ModelConfig``, ``PropertyVAE`` and ``PropOptVAE`` with their training
-forwards, ``HierPropertyVAE`` and ``HierPropOptVAE`` with theirs), and
-``init_params``, flax's default initialisers.
+``ModelConfig``, ``PropertyVAE``, ``PropOptVAE`` and
+``PropOptSchedulingVAE`` with their training forwards, ``HierPropertyVAE``
+and ``HierPropOptVAE`` with theirs, and the attention memory ``A_mem``
+of a model built with ``use_attention``), and ``init_params``, flax's
+default initialisers.
 
 Reference: ggpm/property_vae.py (PropertyVAE, PropOptVAE, HierPropertyVAE,
-HierPropOptVAE).
+HierPropOptVAE, PropOptSchedulingVAE).
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ class ModelConfig:
     are the trained HOPV prop-opt model's too (scripts/quality_run.py),
     which trains the hier family with ``diterG`` 3.  The encoder is the
     LSTM one, with embeddings tied between encoder and decoder.  The GRU
-    cell and untied embeddings are ROADMAP A5."""
+    cell and untied embeddings are ROADMAP A5.  ``use_attention`` adds the
+    attention heads (``A_mem`` and the decoder's ``A_topo``, ``A_cls``,
+    ``A_assm``)."""
     hvocab_size: int
     ivocab_size: int
     atom_vocab_size: int = 38
@@ -45,6 +49,7 @@ class ModelConfig:
     rnn_type: str = 'LSTM'
     tie_embedding: bool = True
     loss_scaling: bool = False
+    use_attention: bool = False
 
     def __post_init__(self):
         if self.rnn_type != 'LSTM':
@@ -59,19 +64,15 @@ class ModelConfig:
     @classmethod
     def from_configs(cls, configs, vocab) -> 'ModelConfig':
         """From a config bag (``configs.Configs``) and its vocab, with the
-        JAX package's defaults; keys the port does not read are ignored,
-        and ``use_attention`` raises."""
-        if getattr(configs, 'use_attention', False):
-            raise NotImplementedError(
-                'use_attention: the port has no attention heads; they wait '
-                'until the base path is complete (ROADMAP A4)')
+        JAX package's defaults; keys the port does not read are
+        ignored."""
         hv, iv = vocab.size()
         return cls(hvocab_size=hv, ivocab_size=iv, **{
             k: getattr(configs, k) for k in (
                 'embed_size', 'hidden_size', 'latent_size',
                 'linear_hidden_size', 'depthT', 'depthG', 'diterT',
                 'diterG', 'dropout', 'rnn_type', 'tie_embedding',
-                'loss_scaling') if hasattr(configs, k)})
+                'loss_scaling', 'use_attention') if hasattr(configs, k)})
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -111,7 +112,9 @@ def init_params(model: nn.Module, gen: torch.Generator) -> nn.Module:
 class PropertyVAE(nn.Module):
     """Motif-level VAE (reference property_vae.py:64-127; registry name
     ``prop``): encoder, posterior heads and decoder, with the embeddings
-    tied between encoder and decoder (reference vae.py:100-109)."""
+    tied between encoder and decoder (reference vae.py:100-109).  With
+    ``cfg.use_attention`` the decoder's heads attend over the encoder's
+    node hiddens projected by ``A_mem`` (JAX vae.py:120-126)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -123,7 +126,10 @@ class PropertyVAE(nn.Module):
         self.R_mean = nn.Linear(cfg.hidden_size, cfg.latent_size)
         self.R_var = nn.Linear(cfg.hidden_size, cfg.latent_size)
         self.decoder = MotifDecoder(self.E_c, self.E_i, cfg.hidden_size,
-                                    cfg.latent_size, cfg.diterT, cfg.dropout)
+                                    cfg.latent_size, cfg.diterT, cfg.dropout,
+                                    cfg.use_attention)
+        if cfg.use_attention:
+            self.A_mem = nn.Linear(cfg.hidden_size, cfg.latent_size)
 
     def _decoder(self) -> MotifDecoder:
         return self.decoder
@@ -148,6 +154,19 @@ class PropertyVAE(nn.Module):
         root, _ = self.encoder(tree)
         return self.rsample(root, eps)
 
+    def encode_attention_memory(self, tree: Dict[str, torch.Tensor]):
+        """``(src_mem, scope)`` for attention-aware decoding (JAX
+        vae.py:156): the encoder's node hiddens projected by ``A_mem`` and
+        the tree's scope windows, for ``decode_motif(src_mem=...,
+        src_scope=...)``."""
+        _, node = self.encoder(tree)
+        return self.A_mem(node), tree['scope']
+
+    def src_mem(self, node: torch.Tensor) -> Optional[torch.Tensor]:
+        """The attention memory of the encoder's node hiddens, None
+        without the attention heads."""
+        return self.A_mem(node) if self.cfg.use_attention else None
+
     def forward(self, batch: Dict[str, Any], beta: float,
                 eps: Optional[torch.Tensor] = None, perturb_z: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -158,12 +177,13 @@ class PropertyVAE(nn.Module):
         from ``generator`` when not given); without, it is the mean.
         Dropout follows ``self.training``."""
         tree, plan = batch['tree'], batch['plan']
-        root, _ = self.encoder(tree)
+        root, node = self.encoder(tree)
         if perturb_z and eps is None:
             eps = torch.randn((root.shape[0], self.cfg.latent_size),
                               generator=generator, device=root.device)
         z, kl = self.rsample(root, eps if perturb_z else None)
-        loss, metrics = self.decoder(tree, plan, z, batch['vocab_mask'])
+        loss, metrics = self.decoder(tree, plan, z, batch['vocab_mask'],
+                                     src_mem=self.src_mem(node))
         total = loss + beta * kl
         metrics = dict(metrics, Loss=total, KL=kl)
         return total, metrics, {'clipped': False}
@@ -206,6 +226,9 @@ class PropOptVAE(nn.Module):
                       eps: Optional[torch.Tensor] = None):
         return self.vae.encode_latent(tree, eps)
 
+    def encode_attention_memory(self, tree: Dict[str, torch.Tensor]):
+        return self.vae.encode_attention_memory(tree)
+
     def predict_properties(self, z: torch.Tensor):
         return self.property_optim.predict(z[:, :self.half_latent],
                                            z[:, self.half_latent:])
@@ -233,7 +256,7 @@ class PropOptVAE(nn.Module):
         model's ``rng=None``); ``aux['clipped']`` is that condition as a
         device bool, read by the ``Trainer`` without a sync per step."""
         tree, plan = batch['tree'], batch['plan']
-        root, _ = self.vae.encoder(tree)
+        root, node = self.vae.encoder(tree)
         if perturb_z and eps is None:
             eps = torch.randn((root.shape[0], self.cfg.latent_size),
                               generator=generator, device=root.device)
@@ -241,7 +264,8 @@ class PropOptVAE(nn.Module):
         homo_loss, lumo_loss, _, _ = self.property_loss(
             z, batch['homos'], batch['lumos'])
         recon_loss, metrics = self.vae.decoder(tree, plan, z,
-                                               batch['vocab_mask'])
+                                               batch['vocab_mask'],
+                                               src_mem=self.vae.src_mem(node))
         recon_loss = recon_loss + beta * kl
         if self.cfg.loss_scaling:
             recon_loss, homo_loss, lumo_loss = self.loss_weigh(
@@ -271,9 +295,12 @@ class HierPropertyVAE(nn.Module):
                                       cfg.atom_vocab_size, cfg.dropout)
         self.decoder = HierDecoder(self.E_c, self.E_i, cfg.hidden_size,
                                    cfg.latent_size, cfg.atom_vocab_size,
-                                   cfg.diterT, cfg.diterG, cfg.dropout)
+                                   cfg.diterT, cfg.diterG, cfg.dropout,
+                                   cfg.use_attention)
         self.R_mean = nn.Linear(cfg.hidden_size, cfg.latent_size)
         self.R_var = nn.Linear(cfg.hidden_size, cfg.latent_size)
+        if cfg.use_attention:
+            self.A_mem = nn.Linear(cfg.hidden_size, cfg.latent_size)
 
     def _decoder(self) -> HierDecoder:
         return self.decoder
@@ -289,12 +316,18 @@ class HierPropertyVAE(nn.Module):
 
     def latent(self, batch: Dict[str, Any], eps, perturb_z, generator):
         """The encoder's root vectors of a batch sampled as
-        ``PropertyVAE.forward`` samples them: ``(z, kl)``."""
-        root, _, _, _ = self.encoder(batch['tree'], batch['graph'])
+        ``PropertyVAE.forward`` samples them, and the attention memories
+        (JAX vae.py:320-325: the motif-level ``A_mem(hnode)`` and the
+        atom-level ``A_mem(hatom)``, None without the attention heads):
+        ``(z, kl, mems)``."""
+        root, hnode, _, hatom = self.encoder(batch['tree'], batch['graph'])
         if perturb_z and eps is None:
             eps = torch.randn((root.shape[0], self.cfg.latent_size),
                               generator=generator, device=root.device)
-        return self.rsample(root, eps if perturb_z else None)
+        mems = ({'src_tree_mem': self.A_mem(hnode),
+                 'src_graph_mem': self.A_mem(hatom)}
+                if self.cfg.use_attention else {})
+        return self.rsample(root, eps if perturb_z else None) + (mems,)
 
     def forward(self, batch: Dict[str, Any], beta: float,
                 eps: Optional[torch.Tensor] = None, perturb_z: bool = True,
@@ -304,9 +337,10 @@ class HierPropertyVAE(nn.Module):
         aux)`` with ``total = decoder loss + beta · KL`` (JAX vae.py:
         314-332), the latent sampled as ``PropertyVAE.forward`` samples
         it."""
-        z, kl = self.latent(batch, eps, perturb_z, generator)
+        z, kl, mems = self.latent(batch, eps, perturb_z, generator)
         loss, metrics = self.decoder(batch['tree'], batch['graph'],
-                                     batch['plan'], z, batch['vocab_mask'])
+                                     batch['plan'], z, batch['vocab_mask'],
+                                     **mems)
         total = loss + beta * kl
         metrics = dict(metrics, Loss=total, KL=kl)
         return total, metrics, {'clipped': False}
@@ -352,12 +386,12 @@ class HierPropOptVAE(nn.Module):
         the circuit breaker and its ``clip_eps``) but for the total,
         ``decoder loss + HOMO MSE + LUMO MSE`` without β·KL (JAX vae.py:
         374-405); ``beta`` is not read."""
-        z, kl = self.hier.latent(batch, eps, perturb_z, generator)
+        z, kl, mems = self.hier.latent(batch, eps, perturb_z, generator)
         homo_loss, lumo_loss, _, _ = self.property_loss(
             z, batch['homos'], batch['lumos'])
         recon_loss, metrics = self.hier.decoder(
             batch['tree'], batch['graph'], batch['plan'], z,
-            batch['vocab_mask'])
+            batch['vocab_mask'], **mems)
         if self.cfg.loss_scaling:
             recon_loss, homo_loss, lumo_loss = self.loss_weigh(
                 recon_loss, homo_loss, lumo_loss)
@@ -366,3 +400,59 @@ class HierPropOptVAE(nn.Module):
         metrics = dict(metrics, Loss=total, KL=kl, Recs_Loss=recon_loss,
                        HOMO_MSE=homo_loss, LUMO_MSE=lumo_loss)
         return total, metrics, {'clipped': clipped}
+
+
+class PropOptSchedulingVAE(nn.Module):
+    """Motif VAE + HOMO/LUMO heads trained with scheduled sampling
+    (reference property_vae.py:399-480; JAX vae.py:408-458; registry name
+    ``prop-opt-sched``): ``PropOptVAE``'s tree (``vae/`` beside
+    ``property_optim/``), the decoder's loss from
+    ``MotifDecoder.scheduled_forward``, the property losses weighted 20
+    (reference property_vae.py:477), no loss scaling and no circuit
+    breaker (``aux['clipped']`` is False)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.half_latent = cfg.latent_size // 2
+        self.vae = PropertyVAE(cfg)
+        self.property_optim = PropertyOptimizer(
+            self.half_latent, cfg.latent_size - self.half_latent,
+            cfg.linear_hidden_size, cfg.dropout)
+
+    def _decoder(self) -> MotifDecoder:
+        return self.vae.decoder
+
+    encode_latent = PropOptVAE.encode_latent
+    encode_attention_memory = PropOptVAE.encode_attention_memory
+    predict_properties = PropOptVAE.predict_properties
+    property_loss = PropOptVAE.property_loss
+
+    def forward(self, batch: Dict[str, Any], beta: float,
+                eps: Optional[torch.Tensor] = None, perturb_z: bool = True,
+                generator: Optional[torch.Generator] = None,
+                tf_ratio: float = 1.0, coins: Optional[torch.Tensor] = None):
+        """The fine-tuning loss of a device batch that carries ``homos``
+        and ``lumos``: ``(total, metrics, aux)`` with ``total = (scheduled
+        decoder loss + beta · KL) + 20 · (HOMO MSE + LUMO MSE)``, the
+        latent sampled as ``PropertyVAE.forward`` samples it.  The
+        decoder feeds its own motif predictions back in the lanes whose
+        ``coins`` are set (``MotifDecoder.scheduled_forward``: drawn from
+        ``generator`` with probability ``1 − tf_ratio`` when not given;
+        the ``Trainer`` passes neither, so it trains at ``tf_ratio`` 1, as
+        the JAX ``Trainer`` does)."""
+        tree, plan = batch['tree'], batch['plan']
+        root, _ = self.vae.encoder(tree)
+        if perturb_z and eps is None:
+            eps = torch.randn((root.shape[0], self.cfg.latent_size),
+                              generator=generator, device=root.device)
+        z, kl = self.vae.rsample(root, eps if perturb_z else None)
+        homo_loss, lumo_loss, _, _ = self.property_loss(
+            z, batch['homos'], batch['lumos'])
+        recon_loss, metrics = self.vae.decoder.scheduled_forward(
+            tree, plan, z, batch['vocab_mask'], tf_ratio, coins, generator)
+        recon_loss = recon_loss + beta * kl
+        total = recon_loss + 20.0 * homo_loss + 20.0 * lumo_loss
+        metrics = dict(metrics, Loss=total, KL=kl, Recs_Loss=recon_loss,
+                       HOMO_MSE=homo_loss, LUMO_MSE=lumo_loss)
+        return total, metrics, {'clipped': False}

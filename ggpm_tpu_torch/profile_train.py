@@ -32,6 +32,7 @@ gives the hier family's step, which chip_smoke.py profiles alike.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -47,7 +48,7 @@ from .data.dataset import prune_to_vocab, read_csv_data
 from .graph.mol_graph import MolGraphBatch, tensorize
 from .graph.vocab import PairVocab, common_atom_vocab, load_vocab_file
 from .models.vae import (HierPropertyVAE, HierPropOptVAE, ModelConfig,
-                         init_params)
+                         PropOptSchedulingVAE, PropOptVAE, init_params)
 from .ops import gather_rows, nei_sum, transpose_sum
 from .profile_serve import (HIER_CKPT, HIER_VOCAB, _device_us, kernel_of,
                             profiled, top_kernels)
@@ -56,7 +57,9 @@ from .train.optim import (default_group_fn, make_multi_optimizer,
                           make_optimizer)
 
 __all__ = ['golden_steps', 'check_golden', 'finetune_trainer', 'hier_trainer',
-           'hopv_batches', 'hopv_rows', 'load_vocab_file', 'main']
+           'sched_trainer', 'attention_trainer', 'sched_step',
+           'check_sched_step', 'hopv_batches', 'hopv_rows',
+           'load_vocab_file', 'main']
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(_ROOT, 'runs', 'QUALITY_hopv.json.ckpt')
@@ -205,10 +208,8 @@ def hier_model(finetune: bool = False, vocab: Optional[PairVocab] = None):
         model = HierPropertyVAE(cfg)
         load_flax_params(model, tree)
         return model, vocab
-    model = init_params(HierPropOptVAE(cfg),
-                        torch.Generator().manual_seed(HEADS_SEED))
-    load_flax_params(model.hier, tree)
-    return model, vocab
+    return with_heads(HierPropOptVAE(cfg),
+                      {'hier': tree.get('params', tree)}), vocab
 
 
 def hier_trainer(device: str, finetune: bool = False,
@@ -227,6 +228,218 @@ def hier_trainer(device: str, finetune: bool = False,
     trainer = Trainer(model, opt, vocab.mask, beta=BETA, print_iter=10 ** 9,
                       perturb_z=False, device=device)
     return trainer, vocab
+
+
+# prop-opt-sched and the attention models (chip_smoke.py phase 13):
+# ``sched_trainer`` is ``finetune_trainer`` with the model type swapped (the
+# full checkpoint's tree in a ``PropOptSchedulingVAE``, which the JAX
+# ``Trainer`` steps at tf_ratio 1); ``attention_trainer`` the trained
+# prop-opt checkpoint (``finetune_trainer``'s settings) or the trained
+# hier-prop one (``hier_trainer``'s) with ``use_attention``, its ``A_*``
+# heads from ``init_params`` seeded with HEADS_SEED (no trained checkpoint
+# has them).
+#
+# The rules.  goldens/train_propsched_hopv.json: its 3 steps by the
+# prop-opt fine-tuning golden's rule (PROPERTY_ATOL,
+# FINETUNE_LATER_UPDATE_RTOL); at tf_ratio 1 no coin is set, so the steps
+# differ from prop-opt's only by the property losses' weight 20.
+# goldens/train_propopt_att_hopv.json the same rule;
+# goldens/train_hier_att_hopv.json by ``hier_rule()``.  The tf_ratio 0.5
+# step (``sched_step`` on the first HOPV batch from the checkpoint, its
+# coins JAX's ``uniform(split(PRNGKey(SCHED_SEED))[1], (T, L)) > 0.5``,
+# stored in the golden): the motif predictions fed back (coin set, an
+# expand step) equal the CPU port's, except where the CPU port's two
+# largest logits lie within NEAR_TIE (printed with its margin); Loss,
+# Recs_Loss and KL within FIRST_RTOL of the golden, the property losses
+# within PROPERTY_ATOL, the accuracies within ACC_ATOL; each gradient
+# leaf within SCHED_GRAD_RTOL of its largest entry (or of 1e-3 of the
+# largest entry of any leaf) of the CPU port's with the same coins.  A
+# flip at a near-tie changes every later embedding of its lane, so the
+# decoder's losses and, through the latent, every gradient but the
+# property heads'; the step is then held only where the scan does not
+# reach: KL and the property losses (the step runs at the latent's mean)
+# and the property heads' gradients (SCAN_FREE_*).  SCHED_GRAD_RTOL
+# (3e-4) is set from the card's readings, above the CPU tests' 1e-4: a
+# leaf whose entries are small and summed over the scan's steps in
+# another order differs by about 1e-4 of its largest entry between the
+# card and the CPU (run 1 of chip_smoke.py's phase 13 on an H100:
+# decoder/W_root/kernel, entries at most 1.4e-3, 1.1e-4; every other
+# leaf 9.2e-5 or less); every leaf's deviation is printed.
+# Between the CPU port and the JAX package, both on the CPU: the sched
+# steps' Loss within 1.1e-5, KL 2.2e-5, GNorm 5.8e-4 (step 2), group norms
+# 8.8e-4 (step 2's decoder), property losses 1.6e-8 absolute, held updates
+# 6.1e-5 / 2.7e-4 / 2.6e-3 (steps 1-3; step 3's lumo head bias, within
+# FINETUNE_LATER_UPDATE_RTOL), accuracies equal; the tf_ratio 0.5 step's
+# metrics within 6.9e-7 relative, its 131 fed-back predictions JAX's, the
+# smallest CPU margin among them 4.0.  The prop-opt attention steps: Loss
+# within 6.8e-7, GNorm 4.8e-6, group norms 2.3e-5, held updates 1.9e-4;
+# the hier attention steps: Loss 2.2e-6, GNorm 2.6e-6, held updates
+# 1.0e-4, Assm 0.0068 at step 2 (one tie, within HIER_ASSM_ATOL).  The
+# attention goldens' gradients are taken before the clip, which binds at
+# their first step (GNorm 181 and 194: the seeded heads are far from
+# trained).
+SCHED_TF = 0.5
+SCHED_SEED = 0
+NEAR_TIE = 1e-4
+SCHED_GRAD_RTOL = 3e-4
+SCAN_FREE_METRICS = ('KL',) + PROPERTY_KEYS
+SCAN_FREE_LEAVES = 'params/property_optim/'
+
+
+def _merge(base: dict, over: dict) -> dict:
+    """``base`` with every leaf of ``over`` put in (nested dicts)."""
+    out = dict(base)
+    for k, v in over.items():
+        out[k] = _merge(base.get(k, {}), v) if isinstance(v, dict) else v
+    return out
+
+
+def with_heads(model, tree) -> torch.nn.Module:
+    """``model`` with the weights of a checkpoint's ``tree`` and, for the
+    leaves the tree lacks (attention or property heads), those of
+    ``init_params`` seeded with ``HEADS_SEED``."""
+    init_params(model, torch.Generator().manual_seed(HEADS_SEED))
+    load_flax_params(model, {'params': _merge(
+        to_flax_tree(model)['params'], tree.get('params', tree))})
+    return model
+
+
+def _finetune_optimizer():
+    return make_multi_optimizer(default_group_fn, FINETUNE_LRS, **{
+        k: v for k, v in OPTIMIZER.items() if k != 'lr'})
+
+
+def sched_model(vocab: Optional[PairVocab] = None):
+    """The full trained checkpoint's tree in a ``PropOptSchedulingVAE``,
+    on the CPU, with its vocab."""
+    vocab = vocab or load_vocab_file(VOCAB)
+    hv, iv = vocab.size()
+    model = PropOptSchedulingVAE(ModelConfig(hvocab_size=hv,
+                                             ivocab_size=iv))
+    load_flax_params(model, read_checkpoint(CKPT))
+    return model, vocab
+
+
+def sched_trainer(device: str, vocab: Optional[PairVocab] = None
+                  ) -> Tuple[Trainer, PairVocab]:
+    """``finetune_trainer`` with the model ``sched_model``."""
+    model, vocab = sched_model(vocab)
+    return Trainer(model, _finetune_optimizer(), vocab.mask, beta=BETA,
+                   print_iter=10 ** 9, perturb_z=False,
+                   device=device), vocab
+
+
+def attention_model(hier: bool = False, vocab: Optional[PairVocab] = None):
+    """The trained prop-opt model (or, with ``hier``, hier-prop model)
+    built with ``use_attention``, its heads seeded (``with_heads``, once a
+    process); on the CPU, with its vocab."""
+    vocab = vocab or load_vocab_file(HIER_VOCAB if hier else VOCAB)
+    model = _attention_shell(hier, vocab)
+    load_flax_params(model, _attention_tree(hier))
+    return model, vocab
+
+
+def _attention_shell(hier: bool, vocab: PairVocab):
+    hv, iv = vocab.size()
+    cls = HierPropertyVAE if hier else PropOptVAE
+    return cls(ModelConfig(hvocab_size=hv, ivocab_size=iv,
+                           use_attention=True,
+                           **(HIER_TRAINED if hier else {})))
+
+
+@functools.lru_cache(maxsize=2)
+def _attention_tree(hier: bool) -> dict:
+    """``attention_model``'s weights, read-only (its trainers in phase 13
+    build three models a family from them)."""
+    model = _attention_shell(hier, load_vocab_file(HIER_VOCAB if hier
+                                                   else VOCAB))
+    return to_flax_tree(with_heads(model, read_checkpoint(
+        HIER_CKPT if hier else CKPT)))
+
+
+def attention_trainer(device: str, hier: bool = False,
+                      vocab: Optional[PairVocab] = None
+                      ) -> Tuple[Trainer, PairVocab]:
+    """A ``Trainer`` of ``attention_model`` on ``device`` without latent
+    noise: prop-opt with ``finetune_trainer``'s optimizer, hier-prop with
+    ``OPTIMIZER``."""
+    model, vocab = attention_model(hier, vocab)
+    opt = make_optimizer(**OPTIMIZER) if hier else _finetune_optimizer()
+    return Trainer(model, opt, vocab.mask, beta=BETA, print_iter=10 ** 9,
+                   perturb_z=False, device=device), vocab
+
+
+def sched_coins(golden: dict, device) -> torch.Tensor:
+    """The tf_ratio 0.5 step's coins [T, L] of the sched golden."""
+    return torch.tensor([[c == '1' for c in row]
+                         for row in golden['sched_step']['coins']],
+                        device=device)
+
+
+def sched_step(model, batch: dict, coins: torch.Tensor) -> dict:
+    """One forward and backward of a ``PropOptSchedulingVAE`` (its
+    training mode) on a device batch at ``SCHED_TF`` with ``coins``, at
+    the latent's mean and β ``BETA``: its metrics, the gradient of every
+    leaf (flax paths) and the decoder's record of the scan
+    (``MotifDecoder.sched_hook``: ``pred``, ``margin``, ``use``)."""
+    record = {}
+    dec = model.vae.decoder
+    dec.sched_hook = record.update
+    model.train()
+    try:
+        for p in model.parameters():
+            p.grad = None
+        total, metrics, _ = model(batch, BETA, perturb_z=False,
+                                  tf_ratio=SCHED_TF, coins=coins)
+        total.backward()
+    finally:
+        dec.sched_hook = None
+    return dict(metrics={k: float(v) for k, v in sorted(metrics.items())},
+                grads=flatten(to_flax_tree(model, lambda p: p.grad)),
+                **{k: record[k].cpu() for k in ('pred', 'margin', 'use')})
+
+
+def check_sched_step(got: dict, cpu: dict, golden: dict) -> Tuple[List[str],
+                                                                 List[str]]:
+    """The tf_ratio 0.5 step's rule (above): ``got`` (``sched_step`` on
+    the card) against ``cpu`` (the CPU port's, the same coins) and the
+    golden; after a flip at a near-tie, only what the scan does not reach
+    (``SCAN_FREE_*``).  Returns (failures, the fed-back predictions that
+    differ at a near-tie, each with its CPU margin)."""
+    use = cpu['use']
+    differ = (got['pred'] != cpu['pred']) & use
+    ties = [f'step {t} lane {l}: {int(got["pred"][t, l])} vs '
+            f'{int(cpu["pred"][t, l])}, CPU margin '
+            f'{float(cpu["margin"][t, l])}'
+            for t, l in differ.nonzero().tolist()]
+    bad = [f'fed-back prediction beyond a near-tie: {x}'
+           for x, (t, l) in zip(ties, differ.nonzero().tolist())
+           if not float(cpu['margin'][t, l]) < NEAR_TIE]
+    want = golden['sched_step']['metrics']
+    for k, w in want.items():
+        if ties and k not in SCAN_FREE_METRICS:
+            continue
+        g = got['metrics'].get(k, float('nan'))
+        tol = (ACC_ATOL if k in ACCURACIES else PROPERTY_ATOL
+               if k in PROPERTY_KEYS else FIRST_RTOL * abs(w))
+        if not abs(g - w) <= tol:
+            bad.append(f'{k}: {g} vs {w}')
+    for k, dev in grad_deviation(got, cpu).items():
+        if ties and not k.startswith(SCAN_FREE_LEAVES):
+            continue
+        if not dev <= SCHED_GRAD_RTOL:
+            bad.append(f'gradient of {k}: max error {dev} of its scale')
+    return bad, ties
+
+
+def grad_deviation(got: dict, cpu: dict) -> Dict[str, float]:
+    """Per leaf, the largest deviation of ``got``'s gradient from
+    ``cpu``'s over the leaf's largest entry in ``cpu`` (or 1e-3 of the
+    largest entry of any leaf, where that is larger)."""
+    top = max(float(np.abs(v).max()) for v in cpu['grads'].values())
+    return {k: float(np.abs(got['grads'][k] - v).max()) /
+            max(float(np.abs(v).max()), 1e-3 * top)
+            for k, v in sorted(cpu['grads'].items())}
 
 
 def update_norms(before: Dict[str, np.ndarray], after: Dict[str, np.ndarray],
@@ -399,18 +612,23 @@ def replay_windows(trainer: Trainer, groups: List[List[dict]]
     """Each step of the flushes of two or more of ``groups`` (their graphs
     already captured) replayed in a profiler window of its own: the
     batch's signature, the wrappers' launches (``launches``), the device
-    launches of each kernel (``device``) and the window's device records
-    (``records``)."""
+    launches of each kernel (``device``), the window's device records
+    (``records``), and the replay's wall ms under the profiler and device
+    busy ms."""
     out = []
     for db in (db for g in groups if len(g) > 1 for db in g):
         before = _counts()
+        wall = []
 
         def replay(db=db):
+            t0 = time.perf_counter()
             trainer.scan_steps([db])
             torch.cuda.synchronize()
-        _, events = profiled(replay)
+            wall.append(1e3 * (time.perf_counter() - t0))
+        busy_us, events = profiled(replay)
         out.append(dict(
             signature=signature(db), scan_steps=db['plan']['mess'].shape[0],
+            wall_ms=wall[0], device_busy_ms=busy_us / 1e3,
             launches={k: float(v - before[k]) for k, v in _counts().items()},
             device={name: float(sum(e.count for e in events
                                     if kernel_of(e.key) == name))

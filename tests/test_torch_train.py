@@ -728,12 +728,9 @@ def test_vae_train_cli_one_epoch(data, tmp_path):
         model)), str(path))
     for k, v in flatten(jax.tree.map(np.asarray, jparams)).items():
         assert np.isfinite(v).all(), k
-    for bad, item in ((['--model-type', 'prop-opt-sched'], 'A4'),
-                      (['--n-devices', '2'], 'A7'), (['--tp', '2'], 'A7')):
-        argv = args + bad if bad[0] != '--model-type' else \
-            args[:2] + bad + args[4:]
-        with pytest.raises(NotImplementedError, match=item):
-            vae_train.main(argv)
+    for bad in (['--n-devices', '2'], ['--tp', '2']):
+        with pytest.raises(NotImplementedError, match='A7'):
+            vae_train.main(args + bad)
     with pytest.raises(NotImplementedError, match='A6'):
         vae_train.main(args[:4] + ['--device', 'cpu'])
     # pretrain -> fine-tune: the encoder of the first run's checkpoint
