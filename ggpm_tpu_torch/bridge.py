@@ -16,7 +16,9 @@ family's trees have the same layout (``params/E_c``,
 ``params/encoder/graph_encoder/...``, ``params/decoder/...``; a
 ``hier-prop-opt`` tree nests them under ``hier/`` beside
 ``property_optim/``), and ``load_model`` tells the four families apart by
-their trees, and a model with attention heads by its ``A_mem``.  A
+their trees, a model with attention heads by its ``A_mem``, a GRU model by
+the ``W_z`` of its cells (``rnn_type``) and untied embeddings by the
+encoder's own ``E_c_mod`` (``tie_embedding``).  A
 ``prop-opt-sched`` tree is a prop-opt one, and loads as ``PropOptVAE``.
 """
 
@@ -346,14 +348,33 @@ def has_attention(tree: Mapping) -> bool:
     return 'A_mem' in vae
 
 
-def load_model(ckpt_path: str, vocab_path: str, device: str = 'cuda'
+def rnn_type(tree: Mapping) -> str:
+    """'GRU' where a checkpoint's cells hold a ``W_z`` (an ``rnn`` module
+    of the tree with that leaf), else 'LSTM'."""
+    return 'GRU' if any(
+        '/W_z/' in p and p.split('/W_z/')[0].split('/')[-1].endswith('rnn')
+        for p in flatten(tree.get('params', tree))) else 'LSTM'
+
+
+def tied(tree: Mapping) -> bool:
+    """Whether a checkpoint's embeddings are tied: False where the VAE's
+    encoder owns an ``E_c_mod`` (``encoder/E_c_mod``)."""
+    params = tree.get('params', tree)
+    vae = params.get('vae', params.get('hier', params))
+    return 'E_c_mod' not in vae.get('encoder', {})
+
+
+def load_model(ckpt_path: str, vocab_path: str, device: str = 'cuda',
+               compute_dtype: str = 'float32'
                ) -> Tuple[torch.nn.Module, PairVocab]:
     """The trained model of a checkpoint (the family its tree holds,
     ``model_class``) and its vocab file, in eval mode on ``device``.  The
     configuration is ``ModelConfig``'s defaults with the vocab's sizes,
     loss scaling where the checkpoint holds ``loss_weigh``, the attention
-    heads where it holds ``A_mem`` (``has_attention``), and for the hier
-    family ``HIER_TRAINED``."""
+    heads where it holds ``A_mem`` (``has_attention``), the cell of its
+    tree (``rnn_type``), its tying (``tied``), and for the hier family
+    ``HIER_TRAINED``.  A checkpoint does not say its ``compute_dtype``
+    (the JAX server reads it from the config): the caller passes it."""
     vocab = load_vocab_file(vocab_path)
     hvocab, ivocab = vocab.size()
     tree = read_checkpoint(ckpt_path)
@@ -362,7 +383,8 @@ def load_model(ckpt_path: str, vocab_path: str, device: str = 'cuda'
     model = cls(ModelConfig(
         hvocab_size=hvocab, ivocab_size=ivocab,
         loss_scaling='loss_weigh' in tree.get('params', tree),
-        use_attention=has_attention(tree),
+        use_attention=has_attention(tree), rnn_type=rnn_type(tree),
+        tie_embedding=tied(tree), compute_dtype=compute_dtype,
         **(HIER_TRAINED if hier else {})))
     load_flax_params(model, tree)
     return model.eval().to(device), vocab

@@ -2,22 +2,28 @@
 //
 //     out[r, :] = src[idx[r], :]        for r < n
 //
-// src is f32 [M, W], idx int32 [n] (an [N, A] index table read flat), out
-// f32 [n, W].  It is the forward of the message-passing depth loop's
-// gather of [h | h Kf | c] by bgraph (W = 3H = 750 at the canonical
-// width), `gather_nd_t` in ggpm_tpu/ops/graph_ops.py, which the JAX package
-// left to XLA's gather (no Pallas kernel); its backward is nei_sum.cu's
-// transpose over the same table.
+// src [M, W] of any element type (f32 or bf16 here), idx int32 [n] (an
+// [N, A] index table read flat), out [n, W] of src's type.  It is the
+// forward of the message-passing depth loop's gather of [h | h Kf | c]
+// (LSTM, W = 3H = 750 at the canonical width) or [h | h U_r + b_r] (GRU,
+// W = 2H = 500) by bgraph, `gather_nd_t` in ggpm_tpu/ops/graph_ops.py,
+// which the JAX package left to XLA's gather (no Pallas kernel); its
+// backward is transpose_sum.cu over the same table.  A row is copied as
+// bytes, so one kernel serves every element type: the copy reads and writes
+// every byte of the rows it gathers, row 0 included (the GRU's table holds
+// b_r in row 0, not zeros).
 //
 // What bounds it on an H100: bytes, and the latency of the two dependent
 // loads (index, then row).  Each output row belongs to `tpr` threads
 // (threadIdx.x) of a block that holds `rpb` rows (threadIdx.y); each thread
-// copies column chunks of V = float, float2 or float4, the widest the
-// alignment allows (a 3,000-byte row allows float2, not float4).  Every
-// thread of a row loads the row's index itself (one L1 line for the
-// block), so no shuffle or barrier is needed.  Stores are ordinary: the
-// depth round reads the gathered tensor right away, so it should stay in
-// the L2.  The launch plan (V, tpr, rpb, grid) is chosen by `plan` in
+// copies column chunks of V = 2, 4, 8 or 16 bytes, the widest the row's
+// byte width and alignment allow (an f32 row of 750 is 3,000 bytes and
+// allows 8; a bf16 row of 750, 1,500 bytes, allows 4; a bf16 row of 500,
+// 1,000 bytes, 8; an f32 row of 500, 2,000 bytes, 16).  Every thread of a
+// row loads the row's index itself (one L1 line for the block), so no
+// shuffle or barrier is needed.  Stores are ordinary: the depth round
+// reads the gathered tensor right away, so it should stay in the L2.  The
+// launch plan (V, tpr, rpb, grid) is chosen by `plan` in
 // ops/gather_rows.py.
 
 #include <cstdint>
@@ -29,23 +35,24 @@ constexpr int kMaxThreads = 256;  // threads per block; ops/gather_rows.py agree
 
 template <typename V>
 __global__ void __launch_bounds__(kMaxThreads)
-gather_rows_kernel(const float* __restrict__ srcf, const int32_t* __restrict__ idx,
-                   float* __restrict__ outf, int64_t n, int64_t cols) {
+gather_rows_kernel(const void* __restrict__ srcv, const int32_t* __restrict__ idx,
+                   void* __restrict__ outv, int64_t n, int64_t cols) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.y + threadIdx.y;
   if (row >= n) return;
-  const V* from = reinterpret_cast<const V*>(srcf) +
+  const V* from = reinterpret_cast<const V*>(srcv) +
                   static_cast<int64_t>(__ldg(idx + row)) * cols;
-  V* to = reinterpret_cast<V*>(outf) + row * cols;
+  V* to = reinterpret_cast<V*>(outv) + row * cols;
   for (int64_t c = threadIdx.x; c < cols; c += blockDim.x) to[c] = __ldg(from + c);
 }
 
-using Kernel = void (*)(const float*, const int32_t*, float*, int64_t, int64_t);
+using Kernel = void (*)(const void*, const int32_t*, void*, int64_t, int64_t);
 
-Kernel pick(int vec) {
-  switch (vec) {
-    case 1: return gather_rows_kernel<float>;
-    case 2: return gather_rows_kernel<float2>;
-    case 4: return gather_rows_kernel<float4>;
+Kernel pick(int vec_bytes) {
+  switch (vec_bytes) {
+    case 2: return gather_rows_kernel<unsigned short>;
+    case 4: return gather_rows_kernel<unsigned int>;
+    case 8: return gather_rows_kernel<uint2>;
+    case 16: return gather_rows_kernel<uint4>;
     default: return nullptr;
   }
 }
@@ -55,11 +62,11 @@ Kernel pick(int vec) {
 extern "C" {
 
 // Launches the plan on `stream` and returns the launch's error, else
-// cudaGetLastError() (0 on success).  cols = W / vec.
-int ggpm_gather_rows_f32(const float* src, const int32_t* idx, float* out,
-                         int64_t n, int64_t cols, int vec, int tpr, int rpb,
-                         int64_t grid, void* stream) {
-  Kernel k = pick(vec);
+// cudaGetLastError() (0 on success).  cols = the row's bytes / vec_bytes.
+int ggpm_gather_rows(const void* src, const int32_t* idx, void* out, int64_t n,
+                     int64_t cols, int vec_bytes, int tpr, int rpb, int64_t grid,
+                     void* stream) {
+  Kernel k = pick(vec_bytes);
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&src, &idx, &out, &n, &cols};
   const cudaError_t err = cudaLaunchKernel(

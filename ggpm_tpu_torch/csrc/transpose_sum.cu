@@ -11,7 +11,11 @@
 // gather's, g is the gathered tensor's cotangent flattened to [N * A, W]
 // and div = 1.  A gather over a table, not a scatter-add: no atomics, and
 // the sum runs in the fixed order k = 0..K-1 in fp32 registers, so it is
-// deterministic.  Masked entries are not loaded.
+// deterministic.  Masked entries are not loaded.  g and out are f32, or
+// bf16 (the cotangents of the encoders' bf16 depth loops and readouts):
+// a bf16 g is loaded packed, widened to f32 exactly, summed in f32 and
+// rounded to bf16 once, at the store, as JAX's `jnp.sum` of the bf16
+// products accumulates in f32 and rounds once; t_mask stays f32.
 //
 // Replaces `_nei_sum_t_bwd` and `_gather_nd_t_bwd` of
 // ggpm_tpu/ops/graph_ops.py (:111, :134), the JAX package's backward of the
@@ -19,8 +23,8 @@
 // depth loop's gather, which it left to XLA's gathers.  Each output row
 // belongs to `tpr` threads (threadIdx.x) of a block holding `rpb` rows
 // (threadIdx.y); thread x owns the column chunks x, x + tpr, ..., x + (C -
-// 1) tpr of V = float, float2 or float4 (the widest the row alignment
-// allows).  The launch plan (V, K, C, tpr, rpb, grid) is chosen by
+// 1) tpr of V = float, float2 or float4, or of 1, 2, 4 or 8 bf16 (the
+// widest the row alignment allows).  The launch plan (V, K, C, tpr, rpb, grid) is chosen by
 // `plan_t` in ops/nei_sum.py; this file checks nothing that the plan
 // decided.
 //
@@ -65,6 +69,7 @@
 //   one add per element loaded.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -133,6 +138,110 @@ __device__ __forceinline__ float4 ldg_if(const float4* p, bool pred) {
   return v;
 }
 
+__device__ __forceinline__ unsigned short ldg_if(const unsigned short* p, bool pred) {
+  unsigned short v;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+      "mov.u16 %0, 0;\n\t@q ld.global.nc.u16 %0, [%1];\n\t}"
+      : "=&h"(v) : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+__device__ __forceinline__ unsigned int ldg_if(const unsigned int* p, bool pred) {
+  unsigned int v;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+      "mov.u32 %0, 0;\n\t@q ld.global.nc.u32 %0, [%1];\n\t}"
+      : "=&r"(v) : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+__device__ __forceinline__ uint2 ldg_if(const uint2* p, bool pred) {
+  uint2 v;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %3, 0;\n\t"
+      "mov.u32 %0, 0;\n\tmov.u32 %1, 0;\n\t"
+      "@q ld.global.nc.v2.u32 {%0, %1}, [%2];\n\t}"
+      : "=&r"(v.x), "=&r"(v.y) : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+__device__ __forceinline__ uint4 ldg_if(const uint4* p, bool pred) {
+  uint4 v;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %5, 0;\n\t"
+      "mov.u32 %0, 0;\n\tmov.u32 %1, 0;\n\t"
+      "mov.u32 %2, 0;\n\tmov.u32 %3, 0;\n\t"
+      "@q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "=&r"(v.x), "=&r"(v.y), "=&r"(v.z), "=&r"(v.w)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+// How a column chunk is loaded, weighed, summed and stored.  F32<V>: V =
+// float, float2 or float4, summed as they are.  BF16<N>: N packed bf16
+// (2, 4, 8 or 16 bytes), summed in N f32 registers, rounded once at the
+// store.
+template <typename V>
+struct F32 {
+  using Ld = V;
+  using Acc = V;
+  static __device__ __forceinline__ Ld load_if(const Ld* p, bool pred) {
+    return ldg_if(p, pred);
+  }
+  static __device__ __forceinline__ Acc zeros() { return zero<V>(); }
+  static __device__ __forceinline__ void accum(Acc& acc, Ld v, float w) {
+    add_to(acc, scaled(v, w));
+  }
+  static __device__ __forceinline__ void store(Ld* p, const Acc& acc) { *p = acc; }
+};
+
+template <int N> struct BfLoad;
+template <> struct BfLoad<1> { using T = unsigned short; };
+template <> struct BfLoad<2> { using T = unsigned int; };
+template <> struct BfLoad<4> { using T = uint2; };
+template <> struct BfLoad<8> { using T = uint4; };
+
+template <int N>
+struct Floats {
+  float v[N];
+};
+
+template <int N>
+struct BF16 {
+  using Ld = typename BfLoad<N>::T;
+  using Acc = Floats<N>;
+  static __device__ __forceinline__ Ld load_if(const Ld* p, bool pred) {
+    return ldg_if(p, pred);
+  }
+  static __device__ __forceinline__ Acc zeros() {
+    Acc a;
+#pragma unroll
+    for (int i = 0; i < N; ++i) a.v[i] = 0.f;
+    return a;
+  }
+  static __device__ __forceinline__ void accum(Acc& acc, Ld v, float w) {
+    if constexpr (N == 1) {
+      acc.v[0] += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(&v)) * w;
+    } else {
+      const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const float2 f = __bfloat1622float2(b2[i]);
+        acc.v[2 * i] += f.x * w;
+        acc.v[2 * i + 1] += f.y * w;
+      }
+    }
+  }
+  static __device__ __forceinline__ void store(Ld* p, const Acc& acc) {
+    Ld out;
+    if constexpr (N == 1) {
+      const __nv_bfloat16 b = __float2bfloat16_rn(acc.v[0]);
+      out = *reinterpret_cast<const unsigned short*>(&b);
+    } else {
+      __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        o2[i] = __float22bfloat162_rn(make_float2(acc.v[2 * i], acc.v[2 * i + 1]));
+      }
+    }
+    *p = out;
+  }
+};
+
 // `count` (<= G) entries of a row from t and m: lane j < count loads entry
 // j's index and weight, both loads in one round, and the warp's shuffles
 // hand all G to every lane (the weight of a missing entry is 0).  Returns
@@ -163,26 +272,27 @@ __device__ __forceinline__ unsigned entries(const int32_t* __restrict__ t,
 // Adds entries j < N (or, with kAny, every entry of G whose weight is not
 // 0) to this thread's C chunks c0, c0 + tpr, ...: all loads are issued
 // before the first add, and the adds run in entry order.
-template <typename V, int G, int C, int N, bool kAny>
-__device__ __forceinline__ void add_entries(V (&acc)[C], const V* __restrict__ g,
+template <typename IO, int G, int C, int N, bool kAny>
+__device__ __forceinline__ void add_entries(typename IO::Acc (&acc)[C],
+                                            const typename IO::Ld* __restrict__ g,
                                             const int32_t (&idx)[G],
                                             const float (&w)[G], int64_t cols,
                                             int64_t c0, int tpr) {
   if constexpr (N > 0) {
-    V v[C][N];
+    typename IO::Ld v[C][N];
 #pragma unroll
     for (int i = 0; i < C; ++i) {
       const int64_t c = c0 + static_cast<int64_t>(i) * tpr;
 #pragma unroll
       for (int j = 0; j < N; ++j) {
-        v[i][j] = ldg_if(g + static_cast<int64_t>(idx[j]) * cols + c,
-                         c < cols && (!kAny || w[j] != 0.f));
+        v[i][j] = IO::load_if(g + static_cast<int64_t>(idx[j]) * cols + c,
+                              c < cols && (!kAny || w[j] != 0.f));
       }
     }
 #pragma unroll
     for (int i = 0; i < C; ++i) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) add_to(acc[i], scaled(v[i][j], w[j]));
+      for (int j = 0; j < N; ++j) IO::accum(acc[i], v[i][j], w[j]);
     }
   }
 }
@@ -192,44 +302,48 @@ __device__ __forceinline__ void add_entries(V (&acc)[C], const V* __restrict__ g
 // prefix of nv entries, and the warp takes the straight-line code for nv
 // (nv = 0 stores zeros and loads nothing): no instruction is spent on a
 // masked entry.  Any other mask takes the predicated path over all G.
-template <typename V, int G, int C, int N = 0>
-__device__ __forceinline__ void add_valid(V (&acc)[C], const V* __restrict__ g,
+template <typename IO, int G, int C, int N = 0>
+__device__ __forceinline__ void add_valid(typename IO::Acc (&acc)[C],
+                                          const typename IO::Ld* __restrict__ g,
                                           const int32_t (&idx)[G],
                                           const float (&w)[G], unsigned valid,
                                           int64_t cols, int64_t c0, int tpr) {
   if constexpr (N > G) {
-    add_entries<V, G, C, G, true>(acc, g, idx, w, cols, c0, tpr);
+    add_entries<IO, G, C, G, true>(acc, g, idx, w, cols, c0, tpr);
   } else {
     if (valid == (1u << N) - 1u) {
-      add_entries<V, G, C, N, false>(acc, g, idx, w, cols, c0, tpr);
+      add_entries<IO, G, C, N, false>(acc, g, idx, w, cols, c0, tpr);
     } else {
-      add_valid<V, G, C, N + 1>(acc, g, idx, w, valid, cols, c0, tpr);
+      add_valid<IO, G, C, N + 1>(acc, g, idx, w, valid, cols, c0, tpr);
     }
   }
 }
 
-template <typename V, int C>
-__device__ __forceinline__ void store(V* __restrict__ dst, const V (&acc)[C],
+template <typename IO, int C>
+__device__ __forceinline__ void store(typename IO::Ld* __restrict__ dst,
+                                      const typename IO::Acc (&acc)[C],
                                       int64_t cols, int64_t c0, int tpr) {
 #pragma unroll
   for (int i = 0; i < C; ++i) {
     const int64_t c = c0 + static_cast<int64_t>(i) * tpr;
-    if (c < cols) dst[c] = acc[i];
+    if (c < cols) IO::store(dst + c, acc[i]);
   }
 }
 
 // K == 0 is the generic path (runtime k, entries in groups of kGroup).  A
 // row is one pass over its columns when tpr * C >= cols, as the plan makes
 // it for rows up to 2 * kMaxThreads chunks (ops/nei_sum.py: MAX_CHUNKS).
-template <typename V, int K, int C, bool kDiv>
+template <typename IO, int K, int C, bool kDiv>
 __global__ void __launch_bounds__(kMaxThreads)
-transpose_sum_kernel(const float* __restrict__ gf, const int32_t* __restrict__ t_idx,
-                     const float* __restrict__ t_mask, float* __restrict__ outf,
+transpose_sum_kernel(const void* __restrict__ gv, const int32_t* __restrict__ t_idx,
+                     const float* __restrict__ t_mask, void* __restrict__ outv,
                      int64_t n, int32_t k, int32_t div, int64_t cols) {
+  using Ld = typename IO::Ld;
+  using Acc = typename IO::Acc;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.y + threadIdx.y;
   if (row >= n) return;
-  const V* g = reinterpret_cast<const V*>(gf);
-  V* dst = reinterpret_cast<V*>(outf) + row * cols;
+  const Ld* g = reinterpret_cast<const Ld*>(gv);
+  Ld* dst = reinterpret_cast<Ld*>(outv) + row * cols;
   const int tpr = blockDim.x;
   const int64_t step = static_cast<int64_t>(tpr) * C;
   if constexpr (K > 0) {
@@ -238,72 +352,85 @@ transpose_sum_kernel(const float* __restrict__ gf, const int32_t* __restrict__ t
     const unsigned valid =
         entries<K, kDiv>(t_idx + row * K, t_mask + row * K, K, div, idx, w);
     for (int64_t c0 = threadIdx.x; c0 < cols; c0 += step) {
-      V acc[C];
+      Acc acc[C];
 #pragma unroll
-      for (int i = 0; i < C; ++i) acc[i] = zero<V>();
-      add_valid<V, K, C>(acc, g, idx, w, valid, cols, c0, tpr);
-      store<V, C>(dst, acc, cols, c0, tpr);
+      for (int i = 0; i < C; ++i) acc[i] = IO::zeros();
+      add_valid<IO, K, C>(acc, g, idx, w, valid, cols, c0, tpr);
+      store<IO, C>(dst, acc, cols, c0, tpr);
     }
   } else {
     const int32_t* t = t_idx + row * k;
     const float* m = t_mask + row * k;
     for (int64_t c0 = threadIdx.x; c0 < cols; c0 += step) {
-      V acc[C];
+      Acc acc[C];
 #pragma unroll
-      for (int i = 0; i < C; ++i) acc[i] = zero<V>();
+      for (int i = 0; i < C; ++i) acc[i] = IO::zeros();
       for (int j0 = 0; j0 < k; j0 += kGroup) {
         int32_t idx[kGroup];
         float w[kGroup];
         const unsigned valid = entries<kGroup, kDiv>(
             t + j0, m + j0, min(kGroup, k - j0), div, idx, w);
-        add_valid<V, kGroup, C>(acc, g, idx, w, valid, cols, c0, tpr);
+        add_valid<IO, kGroup, C>(acc, g, idx, w, valid, cols, c0, tpr);
       }
-      store<V, C>(dst, acc, cols, c0, tpr);
+      store<IO, C>(dst, acc, cols, c0, tpr);
     }
   }
 }
 
-using Kernel = void (*)(const float*, const int32_t*, const float*, float*,
+using Kernel = void (*)(const void*, const int32_t*, const float*, void*,
                         int64_t, int32_t, int32_t, int64_t);
 
-template <typename V, int K, int C>
+template <typename IO, int K, int C>
 Kernel pick_div(bool by_div) {
-  return by_div ? transpose_sum_kernel<V, K, C, true>
-                : transpose_sum_kernel<V, K, C, false>;
+  return by_div ? transpose_sum_kernel<IO, K, C, true>
+                : transpose_sum_kernel<IO, K, C, false>;
 }
 
-template <typename V, int K>
+template <typename IO, int K>
 Kernel pick_chunks(int chunks, bool by_div) {
   switch (chunks) {
-    case 1: return pick_div<V, K, 1>(by_div);
-    case 2: return pick_div<V, K, 2>(by_div);
+    case 1: return pick_div<IO, K, 1>(by_div);
+    case 2: return pick_div<IO, K, 2>(by_div);
     default: return nullptr;
   }
 }
 
-template <typename V>
+template <typename IO>
 Kernel pick_k(int k_tmpl, int chunks, bool by_div) {
   switch (k_tmpl) {
-    case 0: return pick_chunks<V, 0>(chunks, by_div);
-    case 1: return pick_chunks<V, 1>(chunks, by_div);
-    case 2: return pick_chunks<V, 2>(chunks, by_div);
-    case 3: return pick_chunks<V, 3>(chunks, by_div);
-    case 4: return pick_chunks<V, 4>(chunks, by_div);
-    case 5: return pick_chunks<V, 5>(chunks, by_div);
-    case 6: return pick_chunks<V, 6>(chunks, by_div);
-    case 7: return pick_chunks<V, 7>(chunks, by_div);
-    case 8: return pick_chunks<V, 8>(chunks, by_div);
+    case 0: return pick_chunks<IO, 0>(chunks, by_div);
+    case 1: return pick_chunks<IO, 1>(chunks, by_div);
+    case 2: return pick_chunks<IO, 2>(chunks, by_div);
+    case 3: return pick_chunks<IO, 3>(chunks, by_div);
+    case 4: return pick_chunks<IO, 4>(chunks, by_div);
+    case 5: return pick_chunks<IO, 5>(chunks, by_div);
+    case 6: return pick_chunks<IO, 6>(chunks, by_div);
+    case 7: return pick_chunks<IO, 7>(chunks, by_div);
+    case 8: return pick_chunks<IO, 8>(chunks, by_div);
     default: return nullptr;
   }
 }
 
-Kernel pick(int vec, int k_tmpl, int chunks, bool by_div) {
-  switch (vec) {
-    case 1: return pick_k<float>(k_tmpl, chunks, by_div);
-    case 2: return pick_k<float2>(k_tmpl, chunks, by_div);
-    case 4: return pick_k<float4>(k_tmpl, chunks, by_div);
-    default: return nullptr;
+// dtype 0 is f32 (vec 1, 2, 4 floats), 1 bf16 (vec 1, 2, 4, 8 elements).
+Kernel pick(int dtype, int vec, int k_tmpl, int chunks, bool by_div) {
+  if (dtype == 0) {
+    switch (vec) {
+      case 1: return pick_k<F32<float>>(k_tmpl, chunks, by_div);
+      case 2: return pick_k<F32<float2>>(k_tmpl, chunks, by_div);
+      case 4: return pick_k<F32<float4>>(k_tmpl, chunks, by_div);
+      default: return nullptr;
+    }
   }
+  if (dtype == 1) {
+    switch (vec) {
+      case 1: return pick_k<BF16<1>>(k_tmpl, chunks, by_div);
+      case 2: return pick_k<BF16<2>>(k_tmpl, chunks, by_div);
+      case 4: return pick_k<BF16<4>>(k_tmpl, chunks, by_div);
+      case 8: return pick_k<BF16<8>>(k_tmpl, chunks, by_div);
+      default: return nullptr;
+    }
+  }
+  return nullptr;
 }
 
 }  // namespace
@@ -312,14 +439,14 @@ extern "C" {
 
 // Launches the plan on `stream` and returns the launch's error, else
 // cudaGetLastError() (0 on success).  g [*, W], t_idx and t_mask [n, k],
-// out [n, W]; cols = W / vec; k_tmpl is k when 1 <= k <= 8, else 0.
-int ggpm_transpose_sum_f32(const float* g, const int32_t* t_idx,
-                           const float* t_mask, float* out, int64_t n, int64_t k,
-                           int64_t div, int64_t cols, int vec, int k_tmpl,
-                           int chunks, int tpr, int rpb, int64_t grid,
-                           void* stream) {
+// out [n, W]; dtype 0 is f32, 1 bf16 (g and out); cols = W / vec; k_tmpl
+// is k when 1 <= k <= 8, else 0.
+int ggpm_transpose_sum(const void* g, const int32_t* t_idx, const float* t_mask,
+                       void* out, int64_t n, int64_t k, int64_t div, int64_t cols,
+                       int dtype, int vec, int k_tmpl, int chunks, int tpr,
+                       int rpb, int64_t grid, void* stream) {
   if (div < 1) return static_cast<int>(cudaErrorInvalidValue);
-  Kernel kern = pick(vec, k_tmpl, chunks, div != 1);
+  Kernel kern = pick(dtype, vec, k_tmpl, chunks, div != 1);
   if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int32_t k32 = static_cast<int32_t>(k);
   int32_t div32 = static_cast<int32_t>(div);

@@ -30,8 +30,9 @@ first 16 (its five frontier sums), each line as ``measure`` gives it; and
 ``nei_sum`` at the turbo decode's four propose sums
 (``hier_turbo_cases``), at step 20 of a propose round over the 64
 molecules' latents and over 120 prior draws.
-``hier_train_cases``, the new calls of a hier training step, are
-measured by ``chip_smoke.py``.
+``hier_train_cases``, the new calls of a hier training step, and
+``a5_cases``, the GRU's and the bf16 encoders' calls of a training step,
+are measured by ``chip_smoke.py``.
 
 ``transpose_sum`` cases (``transpose_cases``): the four of the first HOPV
 training batch (the depth loop's gather backward and three readout
@@ -142,10 +143,11 @@ def tile_graph(graph: torch.Tensor, m: int, copies: int) -> torch.Tensor:
     return tiled.reshape(-1, graph.shape[1])
 
 
-def random_table(gen: torch.Generator, m: int, hdim: int) -> torch.Tensor:
+def random_table(gen: torch.Generator, m: int, hdim: int,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     h = torch.rand((m, hdim), generator=gen, device=gen.device) * 2 - 1
     h[0] = 0
-    return h
+    return h.to(dtype)
 
 
 def nei_sum_cases(tree: dict, gen: torch.Generator,
@@ -196,7 +198,8 @@ def nei_sum_bytes(h: torch.Tensor, graph: torch.Tensor) -> int:
     """Bytes the function must move: each distinct row of ``h`` that
     ``graph`` reads, ``graph`` itself, and ``out``, once each."""
     rows = torch.unique(graph).numel()
-    return 4 * (rows * h.shape[1] + graph.numel() + graph.shape[0] * h.shape[1])
+    return (h.element_size() * (rows + graph.shape[0]) * h.shape[1] +
+            4 * graph.numel())
 
 
 def nei_sum_ops(h: torch.Tensor, graph: torch.Tensor) -> int:
@@ -289,22 +292,23 @@ def measure_cases(tree: dict, floor: float, wrapper: Callable = nei_sum,
 
 def in_order_nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
     """``nei_sum`` summed in the kernel's order, a = 0..A-1 (zeros for
-    A = 0)."""
+    A = 0), in f32, rounded once to ``h``'s type."""
     if graph.shape[1] == 0:
         return h.new_zeros((graph.shape[0], h.shape[1]))
-    out = h[graph[:, 0].long()].clone()
+    out = h[graph[:, 0].long()].float()
     for a in range(1, graph.shape[1]):
-        out += h[graph[:, a].long()]
-    return out
+        out += h[graph[:, a].long()].float()
+    return out.to(h.dtype)
 
 
 def in_order_transpose(g: torch.Tensor, t_idx: torch.Tensor,
                        t_mask: torch.Tensor, div: int) -> torch.Tensor:
-    """The transpose summed in the kernel's order, k = 0..K-1."""
-    out = t_mask[:, :1] * g[(t_idx[:, 0] // div).long()]
+    """The transpose summed in the kernel's order, k = 0..K-1, in f32,
+    rounded once to ``g``'s type."""
+    out = t_mask[:, :1] * g[(t_idx[:, 0] // div).long()].float()
     for k in range(1, t_idx.shape[1]):
-        out += t_mask[:, k:k + 1] * g[(t_idx[:, k] // div).long()]
-    return out
+        out += t_mask[:, k:k + 1] * g[(t_idx[:, k] // div).long()].float()
+    return out.to(g.dtype)
 
 
 def library_gather(src: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
@@ -320,7 +324,8 @@ def library_transpose(g: torch.Tensor, t_idx: torch.Tensor,
     rows ``t_idx // div`` of ``g`` weighted by ``t_mask`` (a yardstick
     only).  The division is done here, outside the timed call."""
     rows = (t_idx // div).contiguous()
-    return lambda: F.embedding_bag(rows, g, per_sample_weights=t_mask,
+    w = t_mask.to(g.dtype)
+    return lambda: F.embedding_bag(rows, g, per_sample_weights=w,
                                    mode='sum')
 
 
@@ -355,8 +360,9 @@ def gather_rows_case(name: str, src: torch.Tensor, g: torch.Tensor) -> dict:
                 call=lambda: gather_rows(src, g),
                 plain=lambda: graph_ops.gather_nd(src, g), exact=None,
                 library=lambda: library_gather(src, g),
-                bytes=4 * (torch.unique(g).numel() * src.shape[1] +
-                           g.numel() + g.numel() * src.shape[1]), ops=0)
+                bytes=src.element_size() * (torch.unique(g).numel() +
+                                            g.numel()) * src.shape[1] +
+                4 * g.numel(), ops=0)
 
 
 # the hier family's call sites, in the order the port calls them (an
@@ -621,6 +627,43 @@ def train_cases(batch: dict, gen: torch.Generator, hidden: int = 250
     return cases
 
 
+def a5_cases(batch: dict, gen: torch.Generator, hidden: int = 250
+             ) -> List[dict]:
+    """The kernels' new calls in a training step of ROADMAP A5's options,
+    on a device batch's tables (``Trainer.device_batch``) at the width
+    ``hidden``: the GRU's depth gather of ``[h | h·U_r + b_r]`` (2H
+    columns) in f32, forward (``gather_rows``) and backward
+    (``transpose_sum``, div 1); and the bf16 encoders' calls: the depth
+    gather at the LSTM's 3H and the GRU's 2H, each with its backward, the
+    node readout (``nei_sum``) and its backward (div A).  Each case as
+    ``train_cases`` gives it; the plain versions and the in-order sums of
+    a bf16 case sum in f32 and round once, as the kernels do."""
+    tree = batch['tree']
+    dev = gen.device
+    H = hidden
+    bf16 = torch.bfloat16
+    bg = tree['bgraph']
+    n_mess = tree['fmess'].shape[0]
+    ag = tree['agraph']
+    cases = []
+    for name, width, dtype in (('gru-depth-gather', 2 * H, torch.float32),
+                               ('bf16-depth-gather', 3 * H, bf16),
+                               ('bf16-gru-depth-gather', 2 * H, bf16)):
+        cases.append(gather_rows_case(name, random_table(gen, n_mess, width,
+                                                         dtype), bg))
+        g = (torch.rand((bg.numel(), width), generator=gen, device=dev)
+             * 2 - 1).to(dtype)
+        cases.append(transpose_case(f'{name}-bwd', g, tree['bgraph_t'],
+                                    tree['bgraph_tm'], 1))
+    cases.append(nei_sum_case('bf16-readout', random_table(gen, n_mess, H,
+                                                            bf16), ag))
+    g = (torch.rand((ag.shape[0], H), generator=gen, device=dev) * 2 - 1
+         ).to(bf16)
+    cases.append(transpose_case('bf16-readout-bwd', g, tree['agraph_t'],
+                                tree['agraph_tm'], ag.shape[1]))
+    return cases
+
+
 # the scheduled-sampling scan's frontier readout (MotifDecoder.
 # scheduled_forward), B1's call site in JAX's per-step loop
 SCHED_SITE = 'ggpm_tpu/models/decoder.py:470'
@@ -804,8 +847,8 @@ def transpose_case(name: str, g: torch.Tensor, t_idx: torch.Tensor,
         plain=lambda: graph_ops.transpose_sum(g, t_idx, t_mask, div),
         exact=lambda: in_order_transpose(g, t_idx, t_mask, div),
         library=library_transpose(g, t_idx, t_mask, div),
-        bytes=4 * (read * width + 2 * t_idx.numel() + t_idx.shape[0] * width),
-        ops=nnz * width, args=(g, t_idx, t_mask, div))
+        bytes=g.element_size() * (read + t_idx.shape[0]) * width +
+        8 * t_idx.numel(), ops=nnz * width, args=(g, t_idx, t_mask, div))
 
 
 # (M source rows, W, N rows of the forward table, A, div is A?): the
@@ -903,9 +946,10 @@ def measure(cases: Sequence[dict], floor: float) -> Iterator[dict]:
         exact = (c['exact'] or c['plain'])()
         bound_by, bound_ms = bound(c['bytes'], c['ops'])
         row = dict(kernel=c['kernel'], case=c['case'], shape=c['shape'],
+                   dtype=str(out.dtype).removeprefix('torch.'),
                    bytes=c['bytes'], bound_ms=bound_ms, bound_by=bound_by,
                    floor_ms=floor,
-                   max_abs_err=(out - ref).abs().max().item(),
+                   max_abs_err=(out.float() - ref.float()).abs().max().item(),
                    bit_exact=bool(torch.equal(out, exact)))
         row['ms'], row['plain_ms'], row['library_ms'] = (
             device_ms(f) for f in (c['call'], c['plain'], c['library']))

@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..graph.vocab import PairVocab, Vocab
-from ..ops import COUNTED
+from ..ops import add_replay, capture_record, captured_counts
 from .inc_graph import IncGraph, IncTree
 
 
@@ -888,6 +888,7 @@ class Proposer:
         self.alive = torch.zeros(1, dtype=torch.bool, device=device)
         self.graph = None
         self.replay_launches: list = []
+        self.replay_launches_bf16: list = []
         if graph:
             self._capture()
 
@@ -921,13 +922,12 @@ class Proposer:
         with torch.cuda.stream(side):
             self._step()         # builds and loads the kernels, warms caches
         torch.cuda.current_stream(self.mask.device).wait_stream(side)
-        before = [w.captured for w in COUNTED]
+        before = captured_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self._step()
-        self.replay_launches = [(w, w.captured - n)
-                                for w, n in zip(COUNTED, before)
-                                if w.captured > n]
+        self.replay_launches, self.replay_launches_bf16 = capture_record(
+            before)
         self.graph = graph
 
     def start(self, root_vecs: torch.Tensor, pins: np.ndarray) -> None:
@@ -953,8 +953,7 @@ class Proposer:
             self._step()
             return
         self.graph.replay()
-        for w, n in self.replay_launches:
-            w.launches += n
+        add_replay(self.replay_launches, self.replay_launches_bf16)
 
 
 class HierProposer(Proposer):

@@ -16,15 +16,18 @@ per-step readout, decoder.py:470).
 
 Each decode step is one call of ``dec_step_fused`` on [B]-shaped inputs that
 the host loop (``models/decode.py``) builds from its growing trees.  The
-message state is a pair of ``[max_edges * B, H]`` buffers whose row 0 is the
-zero padding message; ``dec_update`` writes the step's new rows in place.
+message state is the cell's tuple of ``[max_edges * B, H]`` buffers (``(h,)``
+for the GRU, ``(h, c)`` for the LSTM) whose row 0 is the zero padding
+message; ``dec_update`` writes the step's new rows in place.
 The frontier readout of ``dec_topo`` goes through the ``nei_sum`` kernel.
 The turbo decode's propose loop (``propose_step_``) runs the same steps on
 the device for the whole decode, its tree and chemistry state included.
 
-The motif and attachment embeddings are owned by the VAE and shared with
-the encoder (reference vae.py tie_embedding), so the decoder holds them
-without registering them as its own parameters.
+With tied embeddings the motif and attachment embeddings are owned by the
+VAE and shared with the encoder (reference vae.py tie_embedding), so the
+decoder holds them without registering them as its own parameters; untied,
+it owns them as ``E_c_mod`` and ``E_i_mod`` (JAX decoder.py:99-102), and
+every step reads its own.
 """
 
 from __future__ import annotations
@@ -38,10 +41,10 @@ from torch import nn
 from ..graph.mol_graph import MAX_POS
 from ..ops import nei_sum, nei_sum_t
 from .decode import hier_topk
-from .encoder import dropout, pos_onehot
-from .rnn import MPNLSTMCell
+from .encoder import dropout, own_embeddings, pos_onehot
+from .rnn import make_cell
 
-State = Tuple[torch.Tensor, torch.Tensor]
+State = Tuple[torch.Tensor, ...]
 
 
 class PredictionMLP(nn.Module):
@@ -142,6 +145,21 @@ def drop_put_(buf: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
     buf.index_put_((idx,), values)
 
 
+_STATE_KEYS = ('h', 'c')
+
+
+def state_carry(prefix: str, state) -> Dict[str, torch.Tensor]:
+    """A cell state's buffers as propose-carry entries: ``prefix + 'h'``
+    and, for the LSTM, ``prefix + 'c'``."""
+    return {prefix + k: s for k, s in zip(_STATE_KEYS, state)}
+
+
+def carry_state(carry: Dict[str, torch.Tensor], prefix: str) -> State:
+    """The cell state that ``state_carry`` put into ``carry``."""
+    return tuple(carry[prefix + k] for k in _STATE_KEYS
+                 if prefix + k in carry)
+
+
 class MotifDecoder(nn.Module):
     """The JAX ``MotifDecoder``.  ``matchNN`` and ``W_assm`` score
     attachments in the training loss only.  With ``use_attention`` the
@@ -158,15 +176,17 @@ class MotifDecoder(nn.Module):
 
     def __init__(self, E_c: nn.Embedding, E_i: nn.Embedding, hidden_size: int,
                  latent_size: int, diterT: int = 1,
-                 dropout_rate: float = 0.0, use_attention: bool = False):
+                 dropout_rate: float = 0.0, use_attention: bool = False,
+                 rnn_type: str = 'LSTM', owned: bool = False):
         super().__init__()
         embed_size = E_c.embedding_dim
-        self._embed = (E_c, E_i)   # a tuple: not registered as submodules
+        own_embeddings(self, E_c, E_i, owned)
         self.hidden_size = hidden_size
         self.latent_size = latent_size
         self.diterT = diterT
         self.drop = dropout(dropout_rate)
-        self.rnn = MPNLSTMCell(embed_size + MAX_POS, hidden_size, diterT)
+        self.rnn = make_cell(rnn_type, embed_size + MAX_POS, hidden_size,
+                             diterT)
         self.W_node = nn.Linear(embed_size + hidden_size, hidden_size)
         head_in = hidden_size + latent_size
         self.topoNN = PredictionMLP(head_in, hidden_size, 1, dropout_rate)
@@ -238,12 +258,12 @@ class MotifDecoder(nn.Module):
 
     def _run_scan(self, tree, plan, root_vecs):
         """Teacher-forced state recurrence and readouts (reference
-        decoder.py:190-287).  The loop carries only the concatenated state
-        ``S = [h | c]`` over ``num_mess + B`` rows (the last B are the
-        virtual root messages, wired to the latent); each step gathers its
-        lanes' neighbour rows, applies the cell from hoisted x terms and
-        writes the new rows out of place, as ``.at[rows].set`` does, with
-        invalid lanes writing zeros to row 0.  One application per step
+        decoder.py:190-287).  The loop carries only the cell's state
+        concatenated, ``S = [h]`` or ``[h | c]``, over ``num_mess + B`` rows
+        (the last B are the virtual root messages, wired to the latent);
+        each step gathers its lanes' neighbour rows, applies the cell from
+        hoisted x terms and writes the new rows out of place, as
+        ``.at[rows].set`` does, with invalid lanes writing zeros to row 0.  One application per step
         reproduces any diterT >= 1 (the message DAG is acyclic).  The
         frontier readouts come after the loop: each row is written once,
         so the final state read through the masked ``plan['frontier']``
@@ -260,24 +280,23 @@ class MotifDecoder(nn.Module):
         mess = plan['mess'].long()
         T = mess.shape[0]
         valid = (mess > 0)[..., None]
-        xp = self.rnn.x_proj(hmess_input)[mess]           # [T, L, 4H]
+        xp = self.rnn.x_proj(hmess_input)[mess]           # [T, L, kH]
         bg_rows = tree['bgraph_dec'][mess].long()         # [T, L, A]
         ks = self.rnn.k_h()
         for t in range(T):
-            nei = S[bg_rows[t]]                           # [L, A, 2H]
-            h, c = self.rnn.step(xp[t], (nei[..., :H], nei[..., H:]), ks)
-            upd = torch.where(valid[t], torch.cat([h, c], dim=-1), 0.0)
+            nei = S[bg_rows[t]]                           # [L, A, n·H]
+            new = self.rnn.step(xp[t], nei.split(H, dim=-1), ks)
+            upd = torch.where(valid[t], torch.cat(new, dim=-1), 0.0)
             S = S.index_put((mess[t],), upd)
         return self._readout(S, hnode_emb, plan) + (init_vecs,)
 
     def _scan_state(self, num_mess: int, init_vecs: torch.Tensor
                     ) -> torch.Tensor:
-        """The scan's zero state ``[h | c]`` over ``num_mess + B`` rows, the
-        last B rows' ``h`` wired to the latent."""
-        H = self.hidden_size
-        zeros = init_vecs.new_zeros((num_mess, 2 * H))
-        return torch.cat([zeros, torch.cat([init_vecs, torch.zeros_like(
-            init_vecs)], dim=-1)])
+        """The scan's zero state, the cell's buffers side by side (``[h]``
+        or ``[h | c]``) over ``num_mess + B`` rows, the last B rows' ``h``
+        wired to the latent."""
+        return torch.cat(self.rnn.init_state(num_mess, init_rows=init_vecs),
+                         dim=-1)
 
     def _readout(self, S: torch.Tensor, hnode_emb: torch.Tensor,
                  plan: Dict[str, torch.Tensor]):
@@ -353,12 +372,13 @@ class MotifDecoder(nn.Module):
         record = [] if self.sched_hook is not None else None
         for t in range(T):
             x = torch.cat([emb_buf[src_all[t]], pos_rows[t]], dim=-1)
-            nei = S[bg_rows[t]]                           # [L, A, 2H]
-            h, c = self.rnn.step(self.rnn.x_proj(x, xw),
-                                 (nei[..., :H], nei[..., H:]), ks)
+            nei = S[bg_rows[t]]                           # [L, A, n·H]
+            new = self.rnn.step(self.rnn.x_proj(x, xw), nei.split(H, dim=-1),
+                                ks)
             v = valid[t][:, None]
-            h, c = torch.where(v, h, 0.0), torch.where(v, c, 0.0)
-            S = S.index_put((mess[t],), torch.cat([h, c], dim=-1))
+            new = [torch.where(v, s, 0.0) for s in new]
+            h = new[0]
+            S = S.index_put((mess[t],), torch.cat(new, dim=-1))
             logits = self.clsNN(torch.cat([h, ctx[t]], dim=-1))
             pred = logits.argmax(-1)
             emb_buf = put_rows(emb_buf, dst_w[t], E_c(pred), limit=n_nodes)
@@ -486,9 +506,10 @@ class MotifDecoder(nn.Module):
     def dec_init_state(self, num_rows: int, root_vecs: torch.Tensor) -> State:
         """Zero message state with the latent wired into rows 1..B (the
         super-root→root edges; reference decoder.py:954-958)."""
-        h, c = self.rnn.init_state(num_rows, root_vecs.device)
-        h[1:root_vecs.shape[0] + 1] = self.root_vecs_to_hidden(root_vecs)
-        return h, c
+        state = self.rnn.init_state(num_rows, root_vecs.device)
+        state[0][1:root_vecs.shape[0] + 1] = self.root_vecs_to_hidden(
+            root_vecs)
+        return state
 
     def dec_update(self, state: State, rows: torch.Tensor,
                    src_clab: torch.Tensor, pos: torch.Tensor,
@@ -599,15 +620,16 @@ class MotifDecoder(nn.Module):
         ``T``-step budget: the message state over ``1 + B·(T+1)`` rows, the
         per-node tables over ``T + 2`` nodes plus the sink column, the
         oracle's per-atom free valences over ``A`` atoms of ``S``-slot
-        motifs, the stack, and the step counter ``t``."""
+        motifs, the stack, and the step counter ``t``.  The state's
+        buffers are ``h`` and, for the LSTM, ``c`` (``state_carry``)."""
         n = T + 3                         # T + 2 nodes and the sink column
         B = batch_size
 
         def z(*shape, dtype=torch.int64):
             return torch.zeros(shape, dtype=dtype, device=device)
-        h, c = self.rnn.init_state(1 + B * (T + 1), device)
         return dict(
-            h=h, c=c, clab=z(B, n), ilab=z(B, n),
+            **state_carry('', self.rnn.init_state(1 + B * (T + 1), device)),
+            clab=z(B, n), ilab=z(B, n),
             slot_used=z(B, n, S, dtype=torch.bool),
             atom_fv=z(B, A, dtype=torch.int32), slot_atom=z(B, n, S),
             atom_cnt=z(B), node_as2=z(B, n, dtype=torch.bool),
@@ -626,9 +648,11 @@ class MotifDecoder(nn.Module):
         the latent wired into each sample's first row, the root motif (the
         masked fine argmax, reference decoder.py:914-948) and its oracle
         state (JAX decoder.py:666-710)."""
-        for k in ('h', 'c', 'clab', 'ilab', 'slot_used', 'atom_fv',
-                  'slot_atom', 'node_as2', 'node_noop', 'in_deg', 'agraph',
-                  'down_row', 'stack', 't', 'n_run'):
+        for s in carry_state(carry, ''):
+            s.zero_()
+        for k in ('clab', 'ilab', 'slot_used', 'atom_fv', 'slot_atom',
+                  'node_as2', 'node_noop', 'in_deg', 'agraph', 'down_row',
+                  'stack', 't', 'n_run'):
             carry[k].zero_()
         S = carry['slot_used'].shape[2]
         base = carry['base']
@@ -681,7 +705,7 @@ class MotifDecoder(nn.Module):
         v = stack[ar, (sp - 1).clamp(min=0)]
         v_clab = cy['clab'][ar, v]
         v_ag = cy['agraph'][ar, v]
-        state = (cy['h'], cy['c'])
+        state = carry_state(cy, '')
 
         topo_logits = self.dec_topo(state, v_clab, v_ag, root_vecs)
         can_exp = in_deg[ar, v] < max_nb

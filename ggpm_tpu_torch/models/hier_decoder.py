@@ -14,9 +14,9 @@ the step's own table and transpose (``data.batching.hier_train_tables``),
 so their backward is the kernels' transpose.
 
 The decode state is ``(tree, inter, graph, hatom, hinter_node)``: the tree
-and attachment levels' LSTM message states over the junction tree's edge
-rows, the atom level's over the molecule's bond rows, and the atom and
-attachment node hiddens.  Every buffer keeps row 0 at zero: the host loop
+and attachment levels' message states (the cell's tuple, ``(h,)`` or
+``(h, c)``) over the junction tree's edge rows, the atom level's over the
+molecule's bond rows, and the atom and attachment node hiddens.  Every buffer keeps row 0 at zero: the host loop
 (``models/decode.py:decode_hier``) pads its index tables with 0, and the
 steps write only zeros there.  The steps update the state in place and
 return it.
@@ -44,19 +44,20 @@ from torch import nn
 from ..graph.mol_graph import MAX_POS
 from ..ops import gather_nd_t, nei_sum, nei_sum_t
 from .decode import HIER_CAND_CAP, hier_topk
-from .decoder import (PredictionMLP, _ce, attend, drop_put_, put_rows,
-                      scatter_rows_, scope_mask)
-from .encoder import dropout, pos_onehot
-from .rnn import MPNLSTMCell
+from .decoder import (PredictionMLP, _ce, attend, carry_state, drop_put_,
+                      put_rows, scatter_rows_, scope_mask, state_carry)
+from .encoder import dropout, own_embeddings, pos_onehot
+from .rnn import make_cell
 
-Level = Tuple[torch.Tensor, torch.Tensor]
+Level = Tuple[torch.Tensor, ...]
 State = Tuple[Level, Level, Level, torch.Tensor, torch.Tensor]
 
 
 class HierDecoder(nn.Module):
-    """The JAX ``HierDecoder``.  The motif and attachment embeddings are
-    owned by the VAE (``tie_embedding``) and shared with the encoder, so
-    the decoder holds them without registering them.  With
+    """The JAX ``HierDecoder``.  Tied (``tie_embedding``), the motif and
+    attachment embeddings are owned by the VAE and shared with the
+    encoder, so the decoder holds them without registering them; untied
+    (``owned``), they are its own ``E_c_mod`` and ``E_i_mod``.  With
     ``use_attention`` the training heads take their context from the
     encoder's memories through ``A_topo``, ``A_cls`` (the motif level's)
     and ``A_assm`` (the atom level's; JAX hier_decoder.py:79-86); the
@@ -65,11 +66,12 @@ class HierDecoder(nn.Module):
     def __init__(self, E_c: nn.Embedding, E_i: nn.Embedding, hidden_size: int,
                  latent_size: int, atom_vocab_size: int, diterT: int = 1,
                  diterG: int = 3, dropout_rate: float = 0.0,
-                 use_attention: bool = False):
+                 use_attention: bool = False, rnn_type: str = 'LSTM',
+                 owned: bool = False):
         super().__init__()
         embed_size = E_c.embedding_dim
         h = hidden_size
-        self._embed = (E_c, E_i)   # a tuple: not registered as submodules
+        own_embeddings(self, E_c, E_i, owned)
         self.hidden_size = h
         self.latent_size = latent_size
         self.atom_vocab_size = atom_vocab_size
@@ -77,9 +79,10 @@ class HierDecoder(nn.Module):
         self.diterG = diterG
         self.drop = dropout(dropout_rate)
         # three incremental levels (reference IncHierMPNEncoder)
-        self.tree_rnn = MPNLSTMCell(h + MAX_POS, h, diterT)
-        self.inter_rnn = MPNLSTMCell(h + MAX_POS, h, diterT)
-        self.graph_rnn = MPNLSTMCell(atom_vocab_size + 4 + MAX_POS, h, diterG)
+        self.tree_rnn = make_cell(rnn_type, h + MAX_POS, h, diterT)
+        self.inter_rnn = make_cell(rnn_type, h + MAX_POS, h, diterT)
+        self.graph_rnn = make_cell(rnn_type, atom_vocab_size + 4 + MAX_POS, h,
+                                   diterG)
         self.W_tree_node = nn.Linear(2 * h, h)
         self.W_inter_node = nn.Linear(2 * h, h)
         self.W_graph_node = nn.Linear(atom_vocab_size + h, h)
@@ -109,7 +112,7 @@ class HierDecoder(nn.Module):
     def _atom_onehot(self, av: torch.Tensor) -> torch.Tensor:
         return F.one_hot(av.long(), self.atom_vocab_size).float()
 
-    def _sparse_direct(self, rnn: MPNLSTMCell, state: Level,
+    def _sparse_direct(self, rnn, state: Level,
                        rows: torch.Tensor, x: torch.Tensor,
                        bg_rows: torch.Tensor, n_iter: int) -> Level:
         """``n_iter`` cell applications to ``rows`` [R] with inputs ``x``
@@ -129,7 +132,7 @@ class HierDecoder(nn.Module):
 
     # -- teacher-forced training loss (JAX hier_decoder.py:109-346) --------
     @staticmethod
-    def _sparse_update(rnn: MPNLSTMCell, weights, state: Level,
+    def _sparse_update(rnn, weights, state: Level,
                        rows: torch.Tensor, x: torch.Tensor, tables,
                        n_iter: int) -> Level:
         """``_sparse_direct`` out of place (JAX ``sparse_update``), for
@@ -196,8 +199,7 @@ class HierDecoder(nn.Module):
         pos_tab = pos_onehot(fmess[:, 2])
 
         dev = root_vecs.device
-        tree_s = (torch.cat([init_vecs.new_zeros((num_mess, H)), init_vecs]),
-                  init_vecs.new_zeros((num_mess + init_vecs.shape[0], H)))
+        tree_s = self.tree_rnn.init_state(num_mess, init_rows=init_vecs)
         inter_s = self.inter_rnn.init_state(num_mess, dev)
         graph_s = self.graph_rnn.init_state(gfmess.shape[0], dev)
         hatom = torch.zeros((gfnode.shape[0], H), device=dev)
@@ -529,7 +531,7 @@ class HierDecoder(nn.Module):
     # (``drop_put_``): one row more than ``1 + B·A`` atoms, ``1 + B·Eg``
     # bond rows, and one element past the cluster-row lists.
 
-    def _sparse_local(self, rnn: MPNLSTMCell, state: Level,
+    def _sparse_local(self, rnn, state: Level,
                       rows: torch.Tensor, x: torch.Tensor,
                       bg_rows: torch.Tensor, n_iter: int) -> Level:
         """``_sparse_direct`` with the full-state traffic out of the
@@ -763,12 +765,12 @@ class HierDecoder(nn.Module):
         def z(*shape, dtype=torch.int64):
             return torch.zeros(shape, dtype=dtype, device=device)
         ar = torch.arange(B, device=device)
-        tree_h, tree_c = self.tree_rnn.init_state(1 + B * (T + 1), device)
-        inter_h, inter_c = self.inter_rnn.init_state(1 + B * (T + 1), device)
-        graph_h, graph_c = self.graph_rnn.init_state(NE, device)
         return dict(
-            tree_h=tree_h, tree_c=tree_c, inter_h=inter_h, inter_c=inter_c,
-            graph_h=graph_h, graph_c=graph_c,
+            **state_carry('tree_', self.tree_rnn.init_state(1 + B * (T + 1),
+                                                            device)),
+            **state_carry('inter_', self.inter_rnn.init_state(
+                1 + B * (T + 1), device)),
+            **state_carry('graph_', self.graph_rnn.init_state(NE, device)),
             hatom=torch.zeros((NA, H), device=device),
             hinter=torch.zeros((1 + B * n, H), device=device),
             clab=z(B, n), ilab=z(B, n), slot_used=z(B, n, S, dtype=torch.bool),
@@ -869,9 +871,9 @@ class HierDecoder(nn.Module):
         slot_used, slot_atom, atom_fv = cy['slot_used'], cy['slot_atom'], \
             cy['atom_fv']
         hatom, hinter = cy['hatom'], cy['hinter']
-        tree_s = (cy['tree_h'], cy['tree_c'])
-        inter_s = (cy['inter_h'], cy['inter_c'])
-        graph_s = (cy['graph_h'], cy['graph_c'])
+        tree_s = carry_state(cy, 'tree_')
+        inter_s = carry_state(cy, 'inter_')
+        graph_s = carry_state(cy, 'graph_')
 
         active = sp > 0
         any_active = active.any()

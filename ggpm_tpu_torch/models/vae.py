@@ -24,16 +24,32 @@ from .heads import LossWeigh, PropertyOptimizer
 from .hier_decoder import HierDecoder
 
 
+def compute_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """A config's ``compute_dtype`` as the encoders' compute type, with
+    JAX's ``_dtype`` semantics (ggpm_tpu/models/vae.py:25-29): 'bf16' and
+    'bfloat16' are ``torch.bfloat16``; any other value (None, 'float32',
+    'float16', ...) is f32, returned as None, and is not an error."""
+    return torch.bfloat16 if name in ('bfloat16', 'bf16') else None
+
+
 @dataclass
 class ModelConfig:
-    """The fields of ``ggpm_tpu.models.vae.ModelConfig`` that the port
-    reads.  The defaults are the JAX package's; those of the motif family
-    are the trained HOPV prop-opt model's too (scripts/quality_run.py),
-    which trains the hier family with ``diterG`` 3.  The encoder is the
-    LSTM one, with embeddings tied between encoder and decoder.  The GRU
-    cell and untied embeddings are ROADMAP A5.  ``use_attention`` adds the
-    attention heads (``A_mem`` and the decoder's ``A_topo``, ``A_cls``,
-    ``A_assm``)."""
+    """The fields of ``ggpm_tpu.models.vae.ModelConfig``.  The defaults
+    are the JAX package's; those of the motif family are the trained HOPV
+    prop-opt model's too (scripts/quality_run.py), which trains the hier
+    family with ``diterG`` 3.
+
+    ``rnn_type`` ('LSTM' or 'GRU') is the cell of every encoder level and
+    decoder; ``tie_embedding`` shares the motif and attachment embeddings
+    between encoder and decoder (the VAE's ``E_c``/``E_i``), and without
+    it each owns its ``E_c_mod``/``E_i_mod``; ``compute_dtype`` 'bf16' (or
+    'bfloat16') runs the encoders' depth loops in bfloat16, any other value
+    in f32 (``compute_dtype``; the decoders, heads and losses stay f32).
+    ``remat`` and ``loop_remat`` are read and kept but change nothing: in
+    JAX they rematerialise the decoder scan's steps and the encoder's depth
+    rounds, which trades compute for memory and leaves the numbers as
+    they are.  ``use_attention`` adds the attention heads (``A_mem`` and
+    the decoder's ``A_topo``, ``A_cls``, ``A_assm``)."""
     hvocab_size: int
     ivocab_size: int
     atom_vocab_size: int = 38
@@ -49,17 +65,19 @@ class ModelConfig:
     rnn_type: str = 'LSTM'
     tie_embedding: bool = True
     loss_scaling: bool = False
+    remat: bool = False
+    loop_remat: bool = False
     use_attention: bool = False
+    compute_dtype: str = 'float32'
 
     def __post_init__(self):
-        if self.rnn_type != 'LSTM':
-            raise NotImplementedError(
-                f'rnn_type {self.rnn_type!r}: the port has the LSTM cell '
-                f'only; the GRU cell is ROADMAP A5')
-        if not self.tie_embedding:
-            raise NotImplementedError(
-                'tie_embedding False: the port shares the embeddings '
-                'between encoder and decoder; untied ones are ROADMAP A5')
+        if self.rnn_type not in ('LSTM', 'GRU'):
+            raise ValueError(f'unsupported rnn cell type {self.rnn_type}')
+
+    @property
+    def dtype(self) -> Optional[torch.dtype]:
+        """The encoders' compute type (``compute_dtype``)."""
+        return compute_dtype(self.compute_dtype)
 
     @classmethod
     def from_configs(cls, configs, vocab) -> 'ModelConfig':
@@ -72,7 +90,8 @@ class ModelConfig:
                 'embed_size', 'hidden_size', 'latent_size',
                 'linear_hidden_size', 'depthT', 'depthG', 'diterT',
                 'diterG', 'dropout', 'rnn_type', 'tie_embedding',
-                'loss_scaling', 'use_attention') if hasattr(configs, k)})
+                'loss_scaling', 'remat', 'loop_remat', 'use_attention',
+                'compute_dtype') if hasattr(configs, k)})
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -109,25 +128,39 @@ def init_params(model: nn.Module, gen: torch.Generator) -> nn.Module:
     return model
 
 
+def embeddings(vae: nn.Module, cfg: ModelConfig):
+    """The encoder's and the decoder's ``(E_c, E_i)`` and whether each owns
+    them (JAX vae.py:100-117): tied, one pair, the VAE's ``E_c`` and
+    ``E_i``; untied, a pair each."""
+    def pair():
+        return (nn.Embedding(cfg.hvocab_size, cfg.embed_size),
+                nn.Embedding(cfg.ivocab_size, cfg.embed_size))
+    if cfg.tie_embedding:
+        vae.E_c, vae.E_i = pair()
+        return (vae.E_c, vae.E_i), (vae.E_c, vae.E_i), False
+    return pair(), pair(), True
+
+
 class PropertyVAE(nn.Module):
     """Motif-level VAE (reference property_vae.py:64-127; registry name
     ``prop``): encoder, posterior heads and decoder, with the embeddings
-    tied between encoder and decoder (reference vae.py:100-109).  With
-    ``cfg.use_attention`` the decoder's heads attend over the encoder's
-    node hiddens projected by ``A_mem`` (JAX vae.py:120-126)."""
+    tied between encoder and decoder (reference vae.py:100-109) unless
+    ``cfg.tie_embedding`` is False.  With ``cfg.use_attention`` the
+    decoder's heads attend over the encoder's node hiddens projected by
+    ``A_mem`` (JAX vae.py:120-126)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        self.E_c = nn.Embedding(cfg.hvocab_size, cfg.embed_size)
-        self.E_i = nn.Embedding(cfg.ivocab_size, cfg.embed_size)
-        self.encoder = MotifEncoder(self.E_c, self.E_i, cfg.hidden_size,
-                                    cfg.depthT, cfg.dropout)
+        enc_emb, dec_emb, owned = embeddings(self, cfg)
+        self.encoder = MotifEncoder(*enc_emb, cfg.hidden_size, cfg.depthT,
+                                    cfg.dropout, cfg.rnn_type, cfg.dtype,
+                                    owned)
         self.R_mean = nn.Linear(cfg.hidden_size, cfg.latent_size)
         self.R_var = nn.Linear(cfg.hidden_size, cfg.latent_size)
-        self.decoder = MotifDecoder(self.E_c, self.E_i, cfg.hidden_size,
+        self.decoder = MotifDecoder(*dec_emb, cfg.hidden_size,
                                     cfg.latent_size, cfg.diterT, cfg.dropout,
-                                    cfg.use_attention)
+                                    cfg.use_attention, cfg.rnn_type, owned)
         if cfg.use_attention:
             self.A_mem = nn.Linear(cfg.hidden_size, cfg.latent_size)
 
@@ -281,22 +314,23 @@ class HierPropertyVAE(nn.Module):
     """Hierarchical (3-level) VAE (reference property_vae.py:11-62;
     registry name ``hier-prop``): ``HierMPNEncoder``, the posterior heads
     and ``HierDecoder``, with the embeddings tied between encoder and
-    decoder.  ``is_hier``: its batches keep their plans unpacked and carry
+    decoder unless ``cfg.tie_embedding`` is False.  ``is_hier``: its
+    batches keep their plans unpacked and carry
     ``data.batching.hier_train_tables`` (JAX ``is_hier``)."""
     is_hier = True
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        self.E_c = nn.Embedding(cfg.hvocab_size, cfg.embed_size)
-        self.E_i = nn.Embedding(cfg.ivocab_size, cfg.embed_size)
-        self.encoder = HierMPNEncoder(self.E_c, self.E_i, cfg.hidden_size,
-                                      cfg.depthT, cfg.depthG,
-                                      cfg.atom_vocab_size, cfg.dropout)
-        self.decoder = HierDecoder(self.E_c, self.E_i, cfg.hidden_size,
+        enc_emb, dec_emb, owned = embeddings(self, cfg)
+        self.encoder = HierMPNEncoder(*enc_emb, cfg.hidden_size, cfg.depthT,
+                                      cfg.depthG, cfg.atom_vocab_size,
+                                      cfg.dropout, cfg.rnn_type, cfg.dtype,
+                                      owned)
+        self.decoder = HierDecoder(*dec_emb, cfg.hidden_size,
                                    cfg.latent_size, cfg.atom_vocab_size,
                                    cfg.diterT, cfg.diterG, cfg.dropout,
-                                   cfg.use_attention)
+                                   cfg.use_attention, cfg.rnn_type, owned)
         self.R_mean = nn.Linear(cfg.hidden_size, cfg.latent_size)
         self.R_var = nn.Linear(cfg.hidden_size, cfg.latent_size)
         if cfg.use_attention:

@@ -9,6 +9,8 @@ the host-built transpose of ``graph`` with ``div`` = 1.  Together they are
 gather ``[h | h·Kf | c]`` by ``bgraph``; where no gradient is taken (the
 serve and decode encodes) the loop calls ``gather_rows`` itself.
 
+The kernel copies rows as bytes, so it takes f32 and bf16 tables alike
+(the bf16 depth loops of a ``compute_dtype`` 'bf16' encoder).
 ``gather_rows`` launches the kernel for CUDA tensors and raises if it
 cannot; for CPU tensors it computes the plain version,
 ``graph_ops.gather_nd``.  ``gather_rows.launches`` counts launches
@@ -24,7 +26,7 @@ import torch
 
 from . import graph_ops
 from .cuda_build import library
-from .nei_sum import MAX_GRID, count_launch, transpose_sum, vec_width
+from .nei_sum import ELEM, MAX_GRID, count_launch, transpose_sum, vec_width
 
 MAX_THREADS = 256          # threads per block (csrc/gather_rows.cu: kMaxThreads)
 
@@ -33,32 +35,37 @@ MAX_THREADS = 256          # threads per block (csrc/gather_rows.cu: kMaxThreads
 class Plan:
     """One launch of ``csrc/gather_rows.cu``: ``grid`` blocks of ``tpr`` x
     ``rpb`` threads, ``tpr`` threads per output row, each copying column
-    chunks of ``vec`` floats."""
+    chunks of ``vec`` elements of ``elem`` bytes."""
     vec: int
     tpr: int
     rpb: int
     grid: int
+    elem: int = 4
+
+    @property
+    def vec_bytes(self) -> int:
+        return self.vec * self.elem
 
 
-def plan(rows: int, width: int, vec: int) -> Plan:
-    """The launch for ``rows`` output rows of ``width`` floats read as
-    ``vec``-wide chunks: one chunk per thread up to ``MAX_THREADS`` threads
-    a row (rounded up to a warp), the rest of the block's threads on
-    further rows."""
-    if rows <= 0 or width % vec:
+def plan(rows: int, width: int, vec: int, elem: int = 4) -> Plan:
+    """The launch for ``rows`` output rows of ``width`` elements of ``elem``
+    bytes read as ``vec``-wide chunks (of 2, 4, 8 or 16 bytes): one chunk
+    per thread up to ``MAX_THREADS`` threads a row (rounded up to a warp),
+    the rest of the block's threads on further rows."""
+    if rows <= 0 or width % vec or vec * elem not in (2, 4, 8, 16):
         raise ValueError(f'gather_rows plan: rows {rows}, width {width}, '
-                         f'vec {vec}')
+                         f'vec {vec} of {elem} bytes')
     tpr = min(MAX_THREADS, -(-(width // vec) // 32) * 32)
     rpb = MAX_THREADS // tpr
     grid = -(-rows // rpb)
     if grid > MAX_GRID:
         raise ValueError(f'gather_rows plan: grid {grid} too large')
-    return Plan(vec, tpr, rpb, grid)
+    return Plan(vec, tpr, rpb, grid, elem)
 
 
 def _lib() -> ctypes.CDLL:
     lib = library('gather_rows')
-    fn = lib.ggpm_gather_rows_f32
+    fn = lib.ggpm_gather_rows
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
@@ -73,26 +80,29 @@ def launch(src: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
     raises if the launch fails."""
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = _lib().ggpm_gather_rows_f32(
+        if src.element_size() != p.elem:
+            raise ValueError(f'gather_rows: a plan for {p.elem}-byte '
+                             f'elements launched on {src.dtype}')
+        err = _lib().ggpm_gather_rows(
             src.data_ptr(), graph.data_ptr(), out.data_ptr(), graph.numel(),
-            src.shape[1] // p.vec, p.vec, p.tpr, p.rpb, p.grid, stream)
+            src.shape[1] // p.vec, p.vec_bytes, p.tpr, p.rpb, p.grid, stream)
         if err:
             raise RuntimeError(f'gather_rows kernel launch failed: CUDA '
                                f'error {err}')
-        count_launch(gather_rows)
+        count_launch(gather_rows, src.dtype)
     return out
 
 
 def gather_rows(src: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
-    """``src[graph]`` for f32 ``src`` [M, W] and int32 ``graph`` [N, A]
-    whose entries lie in [0, M).  The kernel has no backward of its own:
+    """``src[graph]`` for f32 or bf16 ``src`` [M, W] and int32 ``graph``
+    [N, A] whose entries lie in [0, M).  The kernel has no backward of its own:
     where ``src`` needs a gradient on the card, call ``gather_nd_t``."""
     if src.device != graph.device:
         raise ValueError(f'gather_rows: src on {src.device}, graph on '
                          f'{graph.device}')
-    if src.dtype != torch.float32 or graph.dtype != torch.int32:
-        raise TypeError(f'gather_rows takes float32 src and int32 graph, '
-                        f'got {src.dtype} and {graph.dtype}')
+    if src.dtype not in ELEM or graph.dtype != torch.int32:
+        raise TypeError(f'gather_rows takes float32 or bfloat16 src and '
+                        f'int32 graph, got {src.dtype} and {graph.dtype}')
     if src.dim() != 2 or graph.dim() != 2:
         raise ValueError(f'gather_rows takes src [M, W] and graph [N, A], '
                          f'got {tuple(src.shape)} and {tuple(graph.shape)}')
@@ -109,11 +119,13 @@ def gather_rows(src: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
                       device=src.device)
     if graph.numel() == 0:
         return out
-    p = plan(graph.numel(), src.shape[1], vec_width(src, out))
+    p = plan(graph.numel(), src.shape[1], vec_width(src, out),
+             src.element_size())
     return launch(src, graph, out, p)
 
 
 gather_rows.launches = gather_rows.captured = 0
+gather_rows.launches_bf16 = gather_rows.captured_bf16 = 0
 
 
 class _GatherNdT(torch.autograd.Function):

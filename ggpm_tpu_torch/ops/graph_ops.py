@@ -21,7 +21,15 @@ def gather_nd(source: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 def nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
     """Sum neighbour states: ``h[graph].sum(-2)`` for a padded [N, A] index
     table.  Padding entries hit row 0 of ``h`` which is identically zero.
-    The plain version of the ``ops.nei_sum`` kernel."""
+    The plain version of the ``ops.nei_sum`` kernel; a bf16 ``h`` is summed
+    in f32 in the order a = 0..A-1 and rounded once, as the kernel sums."""
+    if h.dtype == torch.bfloat16:
+        rows = h[graph]
+        acc = rows[:, 0].float() if graph.shape[1] else h.new_zeros(
+            (graph.shape[0], h.shape[1]), dtype=torch.float32)
+        for a in range(1, graph.shape[1]):
+            acc = acc + rows[:, a].float()
+        return acc.to(h.dtype)
     return h[graph].sum(dim=-2)
 
 
@@ -31,7 +39,14 @@ def transpose_sum(g: torch.Tensor, t_idx: torch.Tensor, t_mask: torch.Tensor,
     of ``nei_sum`` (``div`` = A) and of the row gather (``div`` = 1) over a
     transpose table from ``build_transpose`` (JAX ``_nei_sum_t_bwd`` and
     ``_gather_nd_t_bwd``).  The plain version of the
-    ``ops.nei_sum.transpose_sum`` kernel."""
+    ``ops.nei_sum.transpose_sum`` kernel; a bf16 ``g`` is summed in f32 in
+    the order k = 0..K-1 and rounded once, as the kernel sums."""
+    if g.dtype == torch.bfloat16:
+        rows = g[t_idx // div]
+        acc = torch.zeros((t_idx.shape[0], g.shape[1]), device=g.device)
+        for k in range(t_idx.shape[1]):
+            acc = acc + rows[:, k].float() * t_mask[:, k, None]
+        return acc.to(g.dtype)
     return (g[t_idx // div] * t_mask[..., None]).sum(dim=-2)
 
 

@@ -12,11 +12,18 @@ shaped for the training step's backward, ``csrc/transpose_sum.cu``; and
 ``nei_sum_t`` is ``nei_sum`` with that as its backward, an autograd
 Function.
 
+Both kernels take f32 or bf16 tables (``h``, ``g`` and ``out``; the
+transpose's mask stays f32).  A bf16 table is summed in f32 and rounded to
+bf16 once, at the store, as the JAX models' ``jnp.sum`` of a bf16 table
+is; its plain versions (``graph_ops``) sum in f32 in the kernel's order
+and round once too, so the card's kernel equals them bit for bit.
+
 ``plan`` and ``plan_t`` choose each kernel's launch (load width, threads
 per row, rows per block, grid; the forward's kind, the transpose's column
-chunks per thread) from the shapes alone, in plain Python, so the CPU tests
-reach them.  ``nei_sum`` and ``transpose_sum`` launch their kernels for
-CUDA tensors and raise if they cannot; they never fall back.  For CPU
+chunks per thread) from the shapes and the element size alone, in plain
+Python, so the CPU tests reach them.  ``nei_sum`` and ``transpose_sum``
+launch their kernels for CUDA tensors and raise if they cannot; they never
+fall back.  For CPU
 tensors they compute the plain versions, ``graph_ops.nei_sum`` and
 ``graph_ops.transpose_sum``.  ``nei_sum.launches`` and
 ``transpose_sum.launches`` count the kernel launches that run
@@ -39,9 +46,13 @@ import torch
 from . import graph_ops
 from .cuda_build import library
 
-# the kernel's constants (csrc/nei_sum.cu: kMaxThreads, Kind)
+# the kernel's constants (csrc/nei_sum.cu: kMaxThreads, Kind, Dtype)
 MAX_THREADS = 256          # threads per block
 KINDS = ('rows', 'tiled')
+# element size (bytes) -> the kernels' dtype code and the elements a chunk
+# may hold (at most 16 bytes a load)
+DTYPES = {4: (0, (1, 2, 4)), 2: (1, (1, 2, 4, 8))}
+ELEM = {torch.float32: 4, torch.bfloat16: 2}
 MAX_A_TEMPLATE = 8         # A = 1..8 are templates; other A take the generic path
 SM_THREADS = 2048          # threads an H100 SM holds
 
@@ -50,22 +61,30 @@ SM_THREADS = 2048          # threads an H100 SM holds
 class Plan:
     """One launch of ``csrc/nei_sum.cu``: ``grid`` blocks of ``tpr`` x
     ``rpb`` threads (``tpr`` threads per row, one column chunk of ``vec``
-    floats each; ``rpb`` rows per tile).  ``a_tmpl`` is A when
-    1 <= A <= 8, else 0 (generic path)."""
+    elements of ``elem`` bytes each; ``rpb`` rows per tile).  ``a_tmpl`` is
+    A when 1 <= A <= 8, else 0 (generic path)."""
     kind: str
     vec: int
     a_tmpl: int
     tpr: int
     rpb: int
     grid: int
+    elem: int = 4
+
+
+def _check_vec(vec: int, elem: int, name: str) -> None:
+    if elem not in DTYPES or vec not in DTYPES[elem][1]:
+        raise ValueError(f'{name} plan: no kernel loads {vec} elements of '
+                         f'{elem} bytes')
 
 
 def plan(n: int, a: int, hdim: int, vec: int, sms: int,
          resident: Callable[[str, int], int],
-         kind: Optional[str] = None) -> Plan:
-    """The launch for ``graph`` [n, a] over rows of ``hdim`` floats read as
-    ``vec``-wide chunks, on a card of ``sms`` SMs.  ``resident(kind,
-    threads)`` is how many such blocks fit on one SM.
+         kind: Optional[str] = None, elem: int = 4) -> Plan:
+    """The launch for ``graph`` [n, a] over rows of ``hdim`` elements of
+    ``elem`` bytes (4: f32, 2: bf16) read as ``vec``-wide chunks, on a card
+    of ``sms`` SMs.  ``resident(kind, threads)`` is how many such blocks
+    fit on one SM.
 
     One chunk per thread (``tpr`` = the row's chunks rounded up to a warp,
     at most ``MAX_THREADS``), so a small ``n`` still spreads over the SMs;
@@ -77,6 +96,7 @@ def plan(n: int, a: int, hdim: int, vec: int, sms: int,
     section 6).  ``kind`` forces a kind, for measurements that compare them."""
     if n <= 0 or hdim % vec:
         raise ValueError(f'nei_sum plan: n {n}, hdim {hdim}, vec {vec}')
+    _check_vec(vec, elem, 'nei_sum')
     cols = hdim // vec
     tpr = min(MAX_THREADS, -(-cols // 32) * 32)
     rpb = MAX_THREADS // tpr
@@ -94,18 +114,18 @@ def plan(n: int, a: int, hdim: int, vec: int, sms: int,
         if per_sm < 1:
             raise ValueError('nei_sum tiled: no block fits on an SM')
         grid = min(tiles, sms * per_sm)
-    return Plan(kind, vec, a_tmpl, tpr, rpb, grid)
+    return Plan(kind, vec, a_tmpl, tpr, rpb, grid, elem)
 
 
 def _lib() -> ctypes.CDLL:
     lib = library('nei_sum')
-    fn = lib.ggpm_nei_sum_f32
+    fn = lib.ggpm_nei_sum
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
-            ctypes.c_int] * 5 + [ctypes.c_int64, ctypes.c_void_p]
+            ctypes.c_int] * 6 + [ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         occ = lib.ggpm_nei_sum_blocks_per_sm
-        occ.argtypes = [ctypes.c_int] * 4
+        occ.argtypes = [ctypes.c_int] * 5
         occ.restype = ctypes.c_int
     return lib
 
@@ -114,9 +134,9 @@ def _check(h: torch.Tensor, graph: torch.Tensor, name: str = 'nei_sum'
            ) -> None:
     if h.device != graph.device:
         raise ValueError(f'{name}: h on {h.device}, graph on {graph.device}')
-    if h.dtype != torch.float32 or graph.dtype != torch.int32:
-        raise TypeError(f'{name} takes float32 h and int32 graph, '
-                        f'got {h.dtype} and {graph.dtype}')
+    if h.dtype not in ELEM or graph.dtype != torch.int32:
+        raise TypeError(f'{name} takes float32 or bfloat16 h and int32 '
+                        f'graph, got {h.dtype} and {graph.dtype}')
     if h.dim() != 2 or graph.dim() != 2:
         raise ValueError(f'{name} takes h [M, H] and graph [N, A], got '
                          f'{tuple(h.shape)} and {tuple(graph.shape)}')
@@ -125,25 +145,27 @@ def _check(h: torch.Tensor, graph: torch.Tensor, name: str = 'nei_sum'
 
 
 def vec_width(h: torch.Tensor, out: torch.Tensor) -> int:
-    """Widest float load that every row start allows."""
-    hdim = h.shape[1]
-    for vec in (4, 2):
-        if hdim % vec == 0 and all(t.data_ptr() % (4 * vec) == 0
-                                   for t in (h, out)):
+    """Elements of the widest load (16, 8 or 4 bytes, and 2 for bf16) that
+    the row width and every row start allow."""
+    hdim, elem = h.shape[1], h.element_size()
+    for nbytes in (16, 8, 4, 2):
+        vec = nbytes // elem
+        if vec >= 1 and hdim % vec == 0 and all(
+                t.data_ptr() % nbytes == 0 for t in (h, out)):
             return vec
     return 1
 
 
 @functools.lru_cache(maxsize=1024)
 def _device_plan(device: int, n: int, a: int, hdim: int, vec: int,
-                 kind: Optional[str]) -> Plan:
+                 kind: Optional[str], elem: int = 4) -> Plan:
     a_tmpl = a if 1 <= a <= MAX_A_TEMPLATE else 0
 
     def resident(k, threads):
         with torch.cuda.device(device):
-            return _lib().ggpm_nei_sum_blocks_per_sm(KINDS.index(k), vec,
-                                                     a_tmpl, threads)
-    return plan(n, a, hdim, vec, _sms(device), resident, kind)
+            return _lib().ggpm_nei_sum_blocks_per_sm(
+                DTYPES[elem][0], KINDS.index(k), vec, a_tmpl, threads)
+    return plan(n, a, hdim, vec, _sms(device), resident, kind, elem)
 
 
 @functools.lru_cache(maxsize=16)
@@ -156,7 +178,7 @@ def device_plan(h: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
     """``plan`` for these CUDA tensors on their card (``kind`` as there)."""
     n, a = graph.shape
     return _device_plan(h.device.index, n, a, h.shape[1], vec_width(h, out),
-                        kind)
+                        kind, h.element_size())
 
 
 def launch(h: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
@@ -166,31 +188,41 @@ def launch(h: torch.Tensor, graph: torch.Tensor, out: torch.Tensor,
     n, a = graph.shape
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = _lib().ggpm_nei_sum_f32(
+        if h.element_size() != p.elem:
+            raise ValueError(f'nei_sum: a plan for {p.elem}-byte elements '
+                             f'launched on {h.dtype}')
+        err = _lib().ggpm_nei_sum(
             h.data_ptr(), graph.data_ptr(), out.data_ptr(), n, a,
-            h.shape[1] // p.vec, KINDS.index(p.kind), p.vec, p.a_tmpl, p.tpr,
-            p.rpb, p.grid, stream)
+            h.shape[1] // p.vec, DTYPES[p.elem][0], KINDS.index(p.kind),
+            p.vec, p.a_tmpl, p.tpr, p.rpb, p.grid, stream)
         if err:
             raise RuntimeError(f'nei_sum kernel launch failed: CUDA error '
                                f'{err}')
-        count_launch(nei_sum)
+        count_launch(nei_sum, h.dtype)
     return out
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, dtype: torch.dtype = torch.float32) -> None:
     """Count one launch of ``wrapper``'s kernel on the current stream:
     in ``wrapper.launches`` when it runs, in ``wrapper.captured`` when a
     CUDA graph capture only records it (``models/decode.py:Proposer``
-    adds a capture's count to ``launches`` at each replay)."""
+    adds a capture's count to ``launches`` at each replay).  A launch on
+    bf16 tables is counted in ``launches_bf16`` (``captured_bf16``) too."""
+    bf16 = dtype == torch.bfloat16
     if torch.cuda.is_current_stream_capturing():
         wrapper.captured += 1
+        if bf16:
+            wrapper.captured_bf16 += 1
     else:
         wrapper.launches += 1
+        if bf16:
+            wrapper.launches_bf16 += 1
 
 
 def nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
-    """``h[graph].sum(1)`` for f32 ``h`` [M, H] and int32 ``graph`` [N, A]
-    whose entries lie in [0, M); row 0 of ``h`` is the zero padding row.
+    """``h[graph].sum(1)`` for f32 or bf16 ``h`` [M, H] and int32 ``graph``
+    [N, A] whose entries lie in [0, M); row 0 of ``h`` is the zero padding
+    row.  A bf16 sum runs in f32 and is rounded once.
     The kernel has no backward of its own: where ``h`` needs a gradient on
     the card, call ``nei_sum_t`` with the table's transpose."""
     _check(h, graph)
@@ -209,6 +241,7 @@ def nei_sum(h: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
 
 
 nei_sum.launches = nei_sum.captured = 0
+nei_sum.launches_bf16 = nei_sum.captured_bf16 = 0
 
 
 # the transpose's constants (csrc/transpose_sum.cu: kMaxThreads)
@@ -223,20 +256,22 @@ MAX_GRID = 2 ** 31 - 1
 class PlanT:
     """One launch of ``csrc/transpose_sum.cu``: ``grid`` blocks of ``tpr``
     x ``rpb`` threads, ``tpr`` threads per row (``rpb`` rows a block),
-    each with ``chunks`` column chunks of ``vec`` floats.  ``k_tmpl`` is K
-    when 1 <= K <= 8, else 0 (generic path)."""
+    each with ``chunks`` column chunks of ``vec`` elements of ``elem``
+    bytes.  ``k_tmpl`` is K when 1 <= K <= 8, else 0 (generic path)."""
     vec: int
     k_tmpl: int
     chunks: int
     tpr: int
     rpb: int
     grid: int
+    elem: int = 4
 
 
 def plan_t(n: int, k: int, width: int, vec: int, sms: int,
-           chunks: Optional[int] = None) -> PlanT:
+           chunks: Optional[int] = None, elem: int = 4) -> PlanT:
     """The transpose's launch for ``t_idx`` [n, k] over rows of ``width``
-    floats read as ``vec``-wide chunks, on a card of ``sms`` SMs.
+    elements of ``elem`` bytes (4: f32, 2: bf16) read as ``vec``-wide
+    chunks, on a card of ``sms`` SMs.
 
     One pass per row: ``chunks`` chunks per thread (by default as many as
     ``ROW_THREADS`` threads need for the row, at most ``MAX_CHUNKS``) and
@@ -249,6 +284,7 @@ def plan_t(n: int, k: int, width: int, vec: int, sms: int,
     if n <= 0 or k < 0 or width % vec:
         raise ValueError(f'transpose_sum plan: n {n}, k {k}, width {width}, '
                          f'vec {vec}')
+    _check_vec(vec, elem, 'transpose_sum')
     cols = width // vec
     if chunks is None:
         chunks = min(MAX_CHUNKS, -(-cols // ROW_THREADS))
@@ -263,15 +299,15 @@ def plan_t(n: int, k: int, width: int, vec: int, sms: int,
     if grid > MAX_GRID:
         raise ValueError(f'transpose_sum plan: grid {grid} too large')
     k_tmpl = k if 1 <= k <= MAX_A_TEMPLATE else 0
-    return PlanT(vec, k_tmpl, chunks, tpr, rpb, grid)
+    return PlanT(vec, k_tmpl, chunks, tpr, rpb, grid, elem)
 
 
 def _lib_t() -> ctypes.CDLL:
     lib = library('transpose_sum')
-    fn = lib.ggpm_transpose_sum_f32
+    fn = lib.ggpm_transpose_sum
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
-            ctypes.c_int] * 5 + [ctypes.c_int64, ctypes.c_void_p]
+            ctypes.c_int] * 6 + [ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -282,7 +318,7 @@ def device_plan_t(g: torch.Tensor, t_idx: torch.Tensor, out: torch.Tensor,
     there)."""
     n, k = t_idx.shape
     return plan_t(n, k, g.shape[1], vec_width(g, out), _sms(g.device.index),
-                  chunks)
+                  chunks, g.element_size())
 
 
 def launch_transpose(g: torch.Tensor, t_idx: torch.Tensor,
@@ -294,21 +330,25 @@ def launch_transpose(g: torch.Tensor, t_idx: torch.Tensor,
     n, k = t_idx.shape
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = _lib_t().ggpm_transpose_sum_f32(
+        if g.element_size() != p.elem:
+            raise ValueError(f'transpose_sum: a plan for {p.elem}-byte '
+                             f'elements launched on {g.dtype}')
+        err = _lib_t().ggpm_transpose_sum(
             g.data_ptr(), t_idx.data_ptr(), t_mask.data_ptr(), out.data_ptr(),
-            n, k, div, g.shape[1] // p.vec, p.vec, p.k_tmpl, p.chunks, p.tpr,
-            p.rpb, p.grid, stream)
+            n, k, div, g.shape[1] // p.vec, DTYPES[p.elem][0], p.vec,
+            p.k_tmpl, p.chunks, p.tpr, p.rpb, p.grid, stream)
         if err:
             raise RuntimeError(f'transpose_sum kernel launch failed: CUDA '
                                f'error {err}')
-        count_launch(transpose_sum)
+        count_launch(transpose_sum, g.dtype)
     return out
 
 
 def transpose_sum(g: torch.Tensor, t_idx: torch.Tensor, t_mask: torch.Tensor,
                   div: int) -> torch.Tensor:
-    """``out[m] = Σ_k t_mask[m, k] · g[t_idx[m, k] // div]`` for f32 ``g``
-    [R, W], int32 ``t_idx`` and f32 ``t_mask`` [M, K] (0 or 1, from
+    """``out[m] = Σ_k t_mask[m, k] · g[t_idx[m, k] // div]`` for f32 or
+    bf16 ``g`` [R, W] (a bf16 sum runs in f32 and is rounded once), int32
+    ``t_idx`` and f32 ``t_mask`` [M, K] (0 or 1, from
     ``graph_ops.build_transpose``), with every ``t_idx // div`` in [0, R).
     The backward of ``nei_sum`` (``div`` = A) and of the row gather
     (``div`` = 1, ``g`` the flattened cotangent).  On the card it launches
@@ -333,6 +373,7 @@ def transpose_sum(g: torch.Tensor, t_idx: torch.Tensor, t_mask: torch.Tensor,
 
 
 transpose_sum.launches = transpose_sum.captured = 0
+transpose_sum.launches_bf16 = transpose_sum.captured_bf16 = 0
 
 
 class _NeiSumT(torch.autograd.Function):

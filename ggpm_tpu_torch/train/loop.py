@@ -28,7 +28,7 @@ import torch
 from ..bridge import to_flax_tree
 from ..data.batching import (compact_plan_dict, hier_train_tables,
                              to_model_batch, train_tables)
-from ..ops import COUNTED
+from ..ops import add_replay, capture_record, captured_counts
 from . import checkpoint as ckpt
 from .optim import Adam, MultiAdam
 
@@ -143,7 +143,7 @@ class StepGraph:
                  stream: torch.cuda.Stream):
         self.inputs = _static_copy(batch, trainer._mask_dev)
         self.eps, self.clip_eps = trainer._noise(batch, static=True)
-        before = [w.captured for w in COUNTED]
+        before = captured_counts()
         mem0 = torch.cuda.memory_reserved(stream.device)
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
@@ -166,8 +166,7 @@ class StepGraph:
         torch.cuda.synchronize(stream.device)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(stream.device) - mem0
-        self.launches = [(w, w.captured - n) for w, n in zip(COUNTED, before)
-                         if w.captured > n]
+        self.launches, self.launches_bf16 = capture_record(before)
 
     def run(self, trainer: 'Trainer', batch: Dict[str, Any]
             ) -> torch.Tensor:
@@ -181,8 +180,7 @@ class StepGraph:
                 dst.copy_(src)
         trainer._noise(batch, out=(self.eps, self.clip_eps))
         self.graph.replay()
-        for w, n in self.launches:
-            w.launches += n
+        add_replay(self.launches, self.launches_bf16)
         return self.out.clone()
 
 

@@ -171,7 +171,9 @@ def default_group_fn(path: str) -> str:
     path (JAX ``default_group_fn``).  The port's parameter names mirror the
     flax paths module by module (``vae.encoder.…``, ``property_optim.
     homo_linear.…``), so the tied embeddings, ``vae.E_c`` and ``vae.E_i``
-    (flax ``vae/E_c/embedding``), fall in the decoder group in both."""
+    (flax ``vae/E_c/embedding``), fall in the decoder group in both, and
+    untied ones by their owner: ``vae.encoder.E_c_mod`` in the encoder
+    group, ``vae.decoder.E_c_mod`` in the decoder group."""
     if 'homo_linear' in path:
         return 'homo'
     if 'lumo_linear' in path:
