@@ -249,7 +249,8 @@ script exits non-zero:
              ``hier_turbo_sites`` carry them with each site's eager
              launches in the counted decodes, and ``nei_sum``'s
              ``hier_turbo_replays`` the graph replays' launches there by
-             the device events (and the exact step's sites' launches).
+             the device events (and the exact step's sites' launches, and
+             the records the profiler lost, ``profiler_lost``).
 13. sched+att — the rest of property optimisation (the counts reset just
              before and read just after).  ``prop-opt-sched``
              (``profile_train.sched_trainer``: ``finetune_trainer``'s
@@ -330,6 +331,44 @@ script exits non-zero:
              16 molecules within 1e-4 of the CPU port, and from the
              golden's latents the turbo and exact decodes on the card
              held to its strings by phase 6's rule (``a5 serve``).
+15. a6    — ROADMAP A6's data CLIs and evaluation suite.  ``get_vocab``
+             on ``data/hopv15.csv`` at ``--min_frequency 10`` must write
+             ``runs/QUALITY_hopv.json.vocab.txt`` byte for byte;
+             ``preprocess`` shards the in-vocab HOPV rows (batch 20, seed
+             1); one epoch of ``vae_train`` from those shards on the card,
+             from the checkpoint's ``vae/`` (the counts reset just before
+             and read just after), and one from a CSV of the same batches
+             in the order the shards gave them: every step's metrics equal
+             bit for bit, each replayed step launching 3 / 22 / 20 by the
+             wrappers and the device events (``a6 shard epoch``, with the
+             epoch's mols/s).  Then the quality twin
+             (``ggpm_tpu_torch.quality_run``) eval-only at ``--n-test 60
+             --enum-root 6 --decode-steps 150`` (the counts reset just
+             before and read just after), held to
+             ``goldens/quality_hopv60.json`` (the JAX script's;
+             tests/test_torch_quality.py rewrites it) by
+             ``quality_run.compare``; its strings by phase 6's rule, at
+             most 2 differing in all, each an fp32 near-tie of the card's
+             and the CPU port's logs of the rows the run decoded, the CPU
+             port's from its encode of the same padded batches
+             (``decoded_rows``; ``a6 quality``).  Last ChemNet of
+             ``random_checkpoint`` over the 60 originals on the card,
+             within 1e-4 of the CPU port's, and the FCD of the
+             reconstructions (``a6 chemnet``); ``a6 times`` gives the
+             phase's seconds, the enum-root evaluation's rootings and
+             seconds, the shard epoch's mols/s and ChemNet's ms a molecule
+             beside ``nvidia-smi``'s name and power limit.
+
+Where a phase holds launches "by the device events", it holds the
+kernels' own device counts: each kernel's first thread counts its launch on
+the card (``ops.device_launches``), read just before and just after the
+profiled run, so a launch that ran is never missed.  The profiler's device
+records of a kernel may fall short of those, which is its loss (it loses a
+record now and then, printed as ``profiler_lost``, or in the replay
+windows as ``windows_with_lost_records``), but never exceed them; what
+only the profiler tells (the launches made by graph replays) is held
+exactly where it lost none of the kernel's records, and as at most where
+it lost some.
 
 The line before the last is ``nvidia-smi``'s; the one before it a JSON
 object listing every kernel; the last line is
@@ -342,21 +381,27 @@ import dataclasses
 import json
 import os
 import sys
+import tempfile
 import time
 import urllib.request
 
 import numpy as np
 import torch
 
-from ggpm_tpu_torch import kernel_bench, profile_serve, profile_train
+from ggpm_tpu_torch import (kernel_bench, profile_serve, profile_train,
+                            quality_run)
 from ggpm_tpu_torch.bridge import load_model
 from ggpm_tpu_torch.chem import canon_smiles
 from ggpm_tpu_torch.data.batching import to_model_batch, train_tables
+from ggpm_tpu_torch.cli import get_vocab, preprocess, vae_train
+from ggpm_tpu_torch.cli.common import write_csv
 from ggpm_tpu_torch.data.dataset import prune_to_vocab, read_csv_data
+from ggpm_tpu_torch.eval import chemnet
 from ggpm_tpu_torch.graph.mol_graph import tensorize
-from ggpm_tpu_torch.graph.vocab import common_atom_vocab
+from ggpm_tpu_torch.graph.vocab import common_atom_vocab, load_vocab_file
 from ggpm_tpu_torch.kernel_bench import (device_ms, eager_ms, floor_ms,
                                          nvidia_smi)
+from ggpm_tpu_torch.models import api
 from ggpm_tpu_torch.models.api import encode
 from ggpm_tpu_torch.models import decode
 from ggpm_tpu_torch.models.decode import decode_best
@@ -364,9 +409,10 @@ from ggpm_tpu_torch.ops import cuda_build, graph_ops, nei_sum
 from ggpm_tpu_torch.ops.nei_sum import KINDS, device_plan, launch
 from ggpm_tpu_torch.latent.control import LatentOptimizer
 from ggpm_tpu_torch.profile_serve import (HIER_CKPT, HIER_VOCAB,
-                                          OPTIMIZE_SETTINGS, kernel_of,
+                                          OPTIMIZE_SETTINGS, by_kernel,
                                           optimize_targets, profile_decode,
-                                          profile_optimize, profiled)
+                                          profile_optimize, profiled,
+                                          profiler_loss)
 from ggpm_tpu_torch.serve import GgpmServer
 from ggpm_tpu_torch.train.loop import flushes, signature, to_device
 
@@ -405,6 +451,8 @@ HIER_A5_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                               'train_hier_gru_bf16_hopv.json')
 DECODE_GRU_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                                  'decode_gru_hopv16.json')
+QUALITY_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
+                              'quality_hopv60.json')
 N_MOLS = 64
 N_DECODE = 120           # the separate decode measurement (ROADMAP A1)
 SAMPLE = {'n': 64, 'seed': 0}
@@ -442,9 +490,14 @@ ATT_LAUNCHES = dict(STEP_LAUNCHES, transpose_sum=23.0)
 # loop's 20 gathers and their transposes; an f32 model launches none
 NO_BF16 = {'nei_sum': 0.0, 'transpose_sum': 0.0, 'gather_rows': 0.0}
 BF16_LAUNCHES = {'nei_sum': 1.0, 'transpose_sum': 20.0, 'gather_rows': 20.0}
-# how many times ``graph_vs_eager`` profiles the replays again where the
-# device events miss a launch that the wrappers counted
-PROFILER_RETRIES = 2
+# phase 15: the quality twin's settings (the golden's, tests/
+# test_torch_quality.py), the host processes of the data CLIs, and ChemNet's
+# activations on the card against the CPU port's
+QUALITY_FLAGS = ['--data', DATA, '--min-freq', '10', '--load-ckpt', CKPT,
+                 '--epochs', '0', '--ft-epochs', '0', '--n-test', '60',
+                 '--enum-root', '6', '--decode-steps', '150']
+A6_NCPU = 8
+CHEMNET_ATOL = 1e-4
 # the profiled epochs of the train and finetune phases, in turns: eager,
 # graph (PR 11's four turns, eager, graph, graph, eager, cut to two so that
 # the hier train phase fits the run's time)
@@ -617,6 +670,29 @@ def read_counts():
     return {name: w.launches for name, w in WRAPPERS.items()}
 
 
+def check_ran(what, launches, ran, device):
+    """A profiled run's launches: the wrappers' counts (``launches``)
+    must equal those that ran by the kernels' own device counts (``ran``,
+    from ``profiled``), and the profiler's records by kernel (``device``)
+    may fall short of those (records it lost) but never exceed them.
+    Returns the records lost (``profiler_loss``)."""
+    lost = profiler_loss(device, ran)
+    if {k: launches[k] for k in ran} != ran or \
+            any(v < 0 for v in lost.values()):
+        raise AssertionError(f'{what}: launches by the wrappers {launches}, '
+                             f'that ran {ran}, profiler records {device}')
+    return lost
+
+
+def graph_records_held(graph, want, lost):
+    """The profiler's records of each kernel's launches by graph replays
+    (``graph``) against ``want``: equal where the profiler lost none of
+    the kernel's records (``lost``, ``check_ran``), at most ``want`` where
+    it lost some."""
+    return all(graph[k] <= want[k] if k in lost else graph[k] == want[k]
+               for k in want)
+
+
 def serve(port, rows):
     """The encoding requests of the main path through GgpmServer.  Returns
     the answers, the kernel launches they made, and each request's."""
@@ -663,7 +739,8 @@ def decode_requests(port, rows):
     """The decoding requests of the main path, each under the profiler.
     Returns their answers, seconds (profiled, without the profiler's
     processing after the request), kernel launches (the wrappers''
-    counts), ``nei_sum_kernel``'s device launches and the turbo decode's
+    counts, those that ran by the kernels' own device counts and the
+    profiler's records of each kernel) and the turbo decode's
     ``TURBO_STATS``, and the kernel counts of both."""
     smiles = [r[0] for r in rows]
     reset_counts()
@@ -672,19 +749,18 @@ def decode_requests(port, rows):
                                  {'smiles': smiles}),
                                 ('sample', '/sample', SAMPLE)):
         before = read_counts()
-        answer = []
+        answer, ran = [], {}
 
         def run():
             t0 = time.perf_counter()
             answer.append(request(port, path, payload))
             torch.cuda.synchronize()
             answer.append(time.perf_counter() - t0)
-        _, events = profiled(run)
+        _, events = profiled(run, ran=ran)
         out[name] = dict(
             smiles=answer[0]['smiles'], seconds=answer[1],
             launches={k: v - before[k] for k, v in read_counts().items()},
-            nei_sum_device_launches=sum(
-                e.count for e in events if 'nei_sum_kernel' in e.key),
+            ran=ran, device=by_kernel(events),
             turbo=dict(decode.TURBO_STATS))
     return out, read_counts()
 
@@ -784,22 +860,21 @@ def decode_phase(model, model_cpu, vocab, rows, answers, enc, batch,
     for name, encodes in (('reconstruct', 1), ('sample', 0)):
         a, st = answers[name], answers[name]['turbo']
         expected = (2 * encodes + sum(st['steps_run']) + st['eager_steps'])
+        lost = check_ran(f'/{name}', a['launches'], a['ran'], a['device'])
         turbo[name] = dict(
             nei_sum_launches=a['launches']['nei_sum'],
-            nei_sum_device_launches=a['nei_sum_device_launches'],
-            expected=expected, encodes=encodes,
+            nei_sum_ran=a['ran']['nei_sum'],
+            nei_sum_device_launches=a['device']['nei_sum'],
+            profiler_lost=lost, expected=expected, encodes=encodes,
             **{k: st[k] for k in ('rounds', 'fallbacks', 'rungs',
                                   'pending_per_round', 'steps', 'steps_run',
                                   'eager_steps')})
         print(f'decode turbo {name} ' + json.dumps(turbo[name]), flush=True)
         if not (a['launches']['gather_rows'] == depth * encodes and
-                a['launches']['nei_sum'] == expected ==
-                a['nei_sum_device_launches']):
+                a['launches']['nei_sum'] == expected):
             raise AssertionError(
-                f'/{name}: launches {a["launches"]}, '
-                f'{a["nei_sum_device_launches"]} nei_sum_kernel on the card; '
-                f'expected nei_sum {expected}, gather_rows '
-                f'{depth * encodes}')
+                f'/{name}: launches {a["launches"]}; expected nei_sum '
+                f'{expected}, gather_rows {depth * encodes}')
     canon = [canon_smiles(s) for s in smiles]
     rec = answers['reconstruct']['smiles']
     return dict(
@@ -878,13 +953,12 @@ def graph_vs_eager(name, make, batches, expected=STEP_LAUNCHES, epochs=2,
     Adam moments and counts after, must be equal bit for bit.  Then every
     replayed step runs again in a profiler window of its own: each must
     launch ``expected`` (``STEP_LAUNCHES``, or a function of the scan's
-    steps T) by the wrappers' counts, and by the device
-    events in each window that lost no records in the profiler
-    (``profile_train.check_replay_windows``; the windows that did are
-    printed); where every window of a signature lost the same record, the
-    replays are profiled again, up to ``PROFILER_RETRIES`` times, each
-    step's fuller window kept (``reprofiled``).  With ``expected_bf16`` (a dict, or a function of T) the
-    wrappers' launches on bf16 tables are held in every window too.
+    steps T) by the wrappers' counts and by the kernels' own device
+    counts, and the profiler's device events may fall short of those
+    (records it lost, printed) but not exceed them
+    (``profile_train.check_replay_windows``).  With ``expected_bf16`` (a
+    dict, or a function of T) the wrappers' launches on bf16 tables are
+    held in every window too.
     Prints and returns the signatures captured, the
     capture seconds, the graphs' pools, the peak memory and each replay
     window's wall ms (under the profiler) and device busy ms."""
@@ -908,17 +982,7 @@ def graph_vs_eager(name, make, batches, expected=STEP_LAUNCHES, epochs=2,
                if not torch.equal(bits(states[False][k]),
                                   bits(states[True][k]))]
     windows = profile_train.replay_windows(tr, groups)
-    reprofiled = 0
     bad, lost = profile_train.check_replay_windows(windows, expected)
-    while reprofiled < PROFILER_RETRIES and any(kind == 'device'
-                                                for _, kind, _ in bad):
-        # the profiler loses a record now and then, in every window of a
-        # signature alike at times: profile the replays again and keep, a
-        # step, the window that holds more records
-        reprofiled += 1
-        windows = [max(a, b, key=lambda w: w['records']) for a, b in zip(
-            windows, profile_train.replay_windows(tr, groups))]
-        bad, lost = profile_train.check_replay_windows(windows, expected)
     if expected_bf16 is not None:
         want = expected_bf16 if callable(expected_bf16) else \
             (lambda _: expected_bf16)
@@ -931,12 +995,13 @@ def graph_vs_eager(name, make, batches, expected=STEP_LAUNCHES, epochs=2,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                replayed_steps=len(windows),
                launches_per_replayed_step=windows[0]['launches'],
+               ran_per_replayed_step=windows[0]['ran'],
                launches_bf16_per_replayed_step=windows[0]['launches_bf16'],
                device_kernels_per_replayed_step=max(
                    windows, key=lambda w: w['records'])['device_by_name'],
                device_launches_per_replayed_step=max(
                    windows, key=lambda w: w['records'])['device'],
-               windows_with_lost_records=lost, reprofiled=reprofiled,
+               windows_with_lost_records=lost,
                replayed_step_wall_ms=[w['wall_ms'] for w in windows],
                replayed_step_device_ms=[w['device_busy_ms']
                                         for w in windows])
@@ -1402,9 +1467,10 @@ def optimize_requests(server, port, rows, golden):
     ``hard`` over HTTP, the others through ``GgpmServer.optimize`` with the
     golden's settings (``profile_serve.profile_optimize``, whose profiled
     request is the one held to the golden).  Returns each one's answer,
-    the search's stats, kernel launches (the wrappers' counts),
-    ``nei_sum_kernel``'s device launches and the turbo decode's stats, and
-    each policy's ``profile_optimize`` split."""
+    the search's stats, kernel launches (the wrappers' counts, those that
+    ran by the kernels' own device counts and the profiler's records of
+    each kernel) and the turbo decode's stats, and each policy's
+    ``profile_optimize`` split."""
     smiles = [r[0] for r in rows]
     out, profiles = {}, {}
     for policy, g in golden['policies'].items():
@@ -1413,20 +1479,19 @@ def optimize_requests(server, port, rows, golden):
                                  f'OPTIMIZE_SETTINGS\'s')
         if policy == 'hard':
             before = read_counts()
-            answer = []
+            answer, ran = [], {}
             _, events = profiled(lambda: answer.append(request(
                 port, '/optimize', {'smiles': smiles, 'homo': golden['homo'],
                                     'lumo': golden['lumo'],
-                                    'policy': 'hard'})))
+                                    'policy': 'hard'})), ran=ran)
             out[policy] = dict(
                 answer=answer[0], search=dict(server.search_stats),
                 launches={k: v - before[k] for k, v in read_counts().items()},
-                nei_sum_device_launches=sum(
-                    e.count for e in events if 'nei_sum_kernel' in e.key),
+                ran=ran, device=by_kernel(events),
                 turbo=dict(decode.TURBO_STATS))
         prof = profile_optimize(server, rows, policy, **g['settings'])
         out.setdefault(policy, {k: prof[k] for k in (
-            'answer', 'search', 'launches', 'nei_sum_device_launches')})
+            'answer', 'search', 'launches', 'ran', 'device')})
         out[policy].setdefault('turbo', {k: prof[k] for k in (
             'rounds', 'fallbacks', 'steps_run', 'eager_steps')})
         profiles[policy] = {k: v for k, v in prof.items()
@@ -1482,14 +1547,14 @@ def optimize_phase(model, model_cpu, vocab, rows, answers, golden, batch,
         t = a['turbo']
         expected = 2 + sum(t['steps_run']) + t['eager_steps']
         launches = a['launches']
-        if not (launches['nei_sum'] == expected ==
-                a['nei_sum_device_launches'] and
+        lost = check_ran(f'/optimize {policy}', launches, a['ran'],
+                         a['device'])
+        if not (launches['nei_sum'] == expected and
                 launches['gather_rows'] == depth and
                 launches['transpose_sum'] == 0):
             raise AssertionError(
-                f'/optimize {policy}: launches {launches}, '
-                f'{a["nei_sum_device_launches"]} nei_sum_kernel on the card; '
-                f'expected nei_sum {expected}, gather_rows {depth}')
+                f'/optimize {policy}: launches {launches}; expected nei_sum '
+                f'{expected}, gather_rows {depth}')
         canon = [canon_smiles(s) for s in (r[0] for r in rows)]
         summary[policy] = dict(
             prediction_err_vs_jax=err,
@@ -1500,8 +1565,9 @@ def optimize_phase(model, model_cpu, vocab, rows, answers, golden, batch,
             iterations=st['iterations'], by_delta=len(st['by_delta']),
             by_patience=len(st['by_patience']), near=sorted(near),
             nei_sum_launches=launches['nei_sum'],
-            nei_sum_device_launches=a['nei_sum_device_launches'],
-            expected=expected, launches=launches,
+            nei_sum_ran=a['ran']['nei_sum'],
+            nei_sum_device_launches=a['device']['nei_sum'],
+            profiler_lost=lost, expected=expected, launches=launches,
             **{k: t[k] for k in ('rounds', 'fallbacks', 'steps_run',
                                  'eager_steps')})
         print(f'optimize {policy} ' + json.dumps(summary[policy]),
@@ -1528,7 +1594,7 @@ def hier_requests(port, rows, golden):
         decode.HIER_STATS.clear()
         decode.TURBO_STATS.clear()
         before = read_counts()
-        answer = []
+        answer, ran = [], {}
 
         def run():
             t0 = time.perf_counter()
@@ -1536,18 +1602,13 @@ def hier_requests(port, rows, golden):
             torch.cuda.synchronize()
             answer.append(time.perf_counter() - t0)
         with kernel_bench.hier_sites() as sites:
-            _, events = profiled(run)
-        device = {k: 0 for k in WRAPPERS}
-        graph = dict(device)
-        for e in events:
-            if kernel_of(e.key):
-                device[kernel_of(e.key)] += e.count
-                graph[kernel_of(e.key)] += e.graph_count
+            _, events = profiled(run, ran=ran)
         out[name] = dict(answer=answer[0], seconds=answer[1],
                          launches={k: v - before[k]
                                    for k, v in read_counts().items()},
-                         device_launches=device,
-                         graph_device_launches=graph,
+                         ran=ran, device_launches=by_kernel(events),
+                         graph_device_launches=by_kernel(events,
+                                                         'graph_count'),
                          site_launches={site: c['launches']
                                         for site, c in sites.items()},
                          stats=dict(decode.HIER_STATS),
@@ -1612,10 +1673,10 @@ def hier_phase(floor):
 
     # the launches: an encode's 5 readouts and its depth loops' rounds, a
     # propose step's 4 frontier sums (eager before a capture, then graph
-    # replays), an exact step's 5; by the wrappers, the device events and
-    # each call site (the wrappers' launches counted where the site calls;
-    # the replays' launches under ``replay``, held to the device events
-    # that graph replays launched)
+    # replays), an exact step's 5; by the wrappers, the kernels' own device
+    # counts and each call site (the wrappers' launches counted where the
+    # site calls; the replays' launches under ``replay``, held to the
+    # profiler's records of graph replays, ``graph_records_held``)
     cfg = hmodel.cfg
     encodes = {'encode': 1, 'reconstruct': 1, 'sample': 0}
     launches = {}
@@ -1637,9 +1698,11 @@ def hier_phase(floor):
                     'transpose_sum': 0}
         by_site = a['site_launches']
         graph = a['graph_device_launches']
-        launches[name] = dict(wrappers=a['launches'],
+        lost = check_ran(f'hier /{name}', a['launches'], a['ran'],
+                         a['device_launches'])
+        launches[name] = dict(wrappers=a['launches'], ran=a['ran'],
                               device=a['device_launches'],
-                              graph_device=graph,
+                              graph_device=graph, profiler_lost=lost,
                               expected=expected,
                               steps_run=sum(ts['steps_run']),
                               eager_steps=ts['eager_steps'],
@@ -1650,12 +1713,12 @@ def hier_phase(floor):
                               seconds=a['seconds'])
         print(f'hier launches {name} ' + json.dumps(launches[name]),
               flush=True)
-        if not a['launches'] == a['device_launches'] == expected:
+        if a['launches'] != expected:
             raise AssertionError(f'hier /{name}: launches {a["launches"]}, '
-                                 f'device events {a["device_launches"]}, '
                                  f'expected {expected}')
-        if by_site != expected_sites or graph != dict(
-                nei_sum=by_site['replay'], transpose_sum=0, gather_rows=0):
+        if by_site != expected_sites or not graph_records_held(graph, dict(
+                nei_sum=by_site['replay'], transpose_sum=0, gather_rows=0),
+                lost):
             raise AssertionError(f'hier /{name}: launches by call site '
                                  f'{by_site}, expected {expected_sites}; '
                                  f'by graph replays {graph}')
@@ -1691,15 +1754,20 @@ def hier_phase(floor):
 def check_exact_launches(what: str, prof: dict) -> None:
     """An exact hier decode's profile (``profile_decode``'s ``hier``
     path): ``nei_sum`` launched 5 times a step, by the wrapper in the
-    timed and in the profiled run and by the device events, none of them
-    from a graph replay."""
+    timed and in the profiled run and by the kernel's own device count in
+    the profiled run; the profiler's records of it fall short of those
+    (records lost, ``profiler_lost``) or equal them, and none is from a
+    graph replay."""
     want = 5 * prof['steps']
-    if not (prof['nei_sum_launches'] == prof['nei_sum_device_launches'] ==
+    if not (prof['nei_sum_launches'] == prof['nei_sum_ran'] ==
             prof['profiled_nei_sum_launches'] == want) or \
+            prof['nei_sum_device_launches'] > want or \
+            any(v < 0 for v in prof['profiler_lost'].values()) or \
             prof['nei_sum_graph_device_launches']:
         raise AssertionError(
-            f'{what}: nei_sum launches {prof["nei_sum_launches"]}, device '
-            f'events {prof["nei_sum_device_launches"]} (by graph replays '
+            f'{what}: nei_sum launches {prof["nei_sum_launches"]}, that ran '
+            f'{prof["nei_sum_ran"]}, device events '
+            f'{prof["nei_sum_device_launches"]} (by graph replays '
             f'{prof["nei_sum_graph_device_launches"]}), profiled '
             f'{prof["profiled_nei_sum_launches"]}, expected {want}')
 
@@ -1836,19 +1904,17 @@ def hier_turbo_phase(floor):
     for z in latents:
         B = len(z)
         reset_counts()
-        out = []
+        out, ran = [], {}
         with kernel_bench.hier_sites() as at:
             _, events = profiled(lambda: out.append(decode_best(
                 hmodel, hvocab, common_atom_vocab, z,
-                max_decode_step=MAX_DECODE_STEP)))
+                max_decode_step=MAX_DECODE_STEP)), ran=ran)
         stats = dict(decode.TURBO_STATS)
         got = read_counts()
-        for k in counts:
-            counts[k] += got[k]
         smiles = out[0][1]
-        nei = [e for e in events if kernel_of(e.key) == 'nei_sum']
-        device = sum(e.count for e in nei)
-        graph = sum(e.graph_count for e in nei)
+        device = by_kernel(events)
+        graph = by_kernel(events, 'graph_count')['nei_sum']
+        lost = check_ran(f'hier turbo B{B}', got, ran, device)
         by_site = {str(k): v['launches'] for k, v in at.items()}
         expected_sites = {
             **{str(k): 0 for k in at},
@@ -1858,23 +1924,28 @@ def hier_turbo_phase(floor):
                for site, _ in kernel_bench.HIER_STEP_SITES},
             'replay': 4 * sum(stats['steps_run'])}
         decoded = dict(
-            nei_sum_launches=got['nei_sum'], device_launches=device,
-            graph_device_launches=graph,
+            nei_sum_launches=got['nei_sum'], nei_sum_ran=ran['nei_sum'],
+            device_launches=device['nei_sum'], graph_device_launches=graph,
+            profiler_lost=lost,
             expected=profile_serve.hier_turbo_launches(stats),
             sites=by_site, steps_run=sum(stats['steps_run']),
             eager_steps=stats['eager_steps'],
-            exact_steps=stats['exact_steps'], fallbacks=stats['fallbacks'],
+            exact_steps=stats['exact_steps'],
+            fallbacks=stats['fallbacks'],
             fallback_causes=stats['fallback_causes'])
         print(f'hier turbo decode B{B} ' + json.dumps(decoded), flush=True)
-        if not (got['nei_sum'] == device == decoded['expected'] ==
-                graph + sum(v for k, v in by_site.items() if k != 'replay')) \
-                or graph != by_site['replay'] or by_site != expected_sites:
+        if not (got['nei_sum'] == decoded['expected'] == sum(
+                by_site.values())) or by_site != expected_sites or \
+                not graph_records_held({'nei_sum': graph},
+                                       {'nei_sum': by_site['replay']}, lost):
             raise AssertionError(f'hier turbo B{B}: launches {decoded}, '
                                  f'by site expected {expected_sites}')
+        for k in counts:
+            counts[k] += got[k]
         site_launches.update({f'hier-turbo-{site}-B{B}': by_site[site]
                               for site in kernel_bench.HIER_PROPOSE_NAMES})
         replays[f'B{B}'] = dict(launches=graph, steps_run=decoded[
-            'steps_run'], exact_step_launches={
+            'steps_run'], profiler_lost=lost, exact_step_launches={
                 site: by_site[site]
                 for site, _ in kernel_bench.HIER_STEP_SITES})
 
@@ -1912,10 +1983,14 @@ def hier_turbo_phase(floor):
         # profiler loses records in some replay windows, PERF.md section 7)
         if not (turbo['nei_sum_launches'] ==
                 turbo['expected_nei_sum_launches'] ==
-                turbo['nei_sum_device_launches'] ==
+                turbo['nei_sum_ran'] ==
                 turbo['profiled_nei_sum_launches']) or \
-                turbo['nei_sum_graph_device_launches'] != \
-                4 * sum(turbo['steps_run']) or \
+                turbo['nei_sum_device_launches'] > turbo['nei_sum_ran'] or \
+                any(v < 0 for v in turbo['profiler_lost'].values()) or \
+                not graph_records_held(
+                    {'nei_sum': turbo['nei_sum_graph_device_launches']},
+                    {'nei_sum': 4 * sum(turbo['steps_run'])},
+                    turbo['profiler_lost']) or \
                 len(differ) > MAX_DIFFERING or t_smiles != smiles or \
                 'vs_jax' in row and (
                     len(row['vs_jax']['differ']) > MAX_DIFFERING or
@@ -1930,6 +2005,224 @@ def hier_turbo_phase(floor):
         turbo_rows.setdefault(row['kernel'], {})[row['case']] = row
     print('hier turbo ' + json.dumps(summary), flush=True)
     return summary, counts, turbo_rows, site_launches, replays
+
+
+def shard_epochs(tmp, vocab_path, shards):
+    """One epoch of the ``vae_train`` CLI on the card from ``shards``, and
+    one from a CSV of the same batches in the order the shards gave them,
+    both from the checkpoint's ``vae/`` (``saved_model``), each recorded
+    (``profile_train.recorded_epochs``); the counts are reset just before
+    the shards' run and read just after it.  Every step's metrics must be
+    equal bit for bit.  Returns the two records and the shards' counts."""
+    def run(name, extra):
+        cfg = os.path.join(tmp, f'{name}.json')
+        with open(cfg, 'w') as f:
+            json.dump(dict(vocab_=vocab_path, saved_model=CKPT, data=shards,
+                           save_dir=os.path.join(tmp, f'train_{name}'),
+                           batch_size=20,
+                           epoch=1, print_iter=10 ** 9, seed=1), f)
+        with profile_train.recorded_epochs() as rec:
+            vae_train.main(['--path-to-config', cfg, '--model-type', 'prop',
+                            '--device', 'cuda'] + extra)
+        return rec
+
+    reset_counts()
+    by_shards = run('shards', [])
+    counts = read_counts()
+    csv_path = os.path.join(tmp, 'shard_order.csv')
+    write_csv(csv_path, [dict(SMILES=s, HOMO=float(h), LUMO=float(l))
+                         for mb in by_shards['batches']
+                         for s, h, l in zip(mb.smiles, mb.homos, mb.lumos)])
+    by_csv = run('csv', ['--data-csv', csv_path])
+    a, b = by_shards['steps'], by_csv['steps']
+    differ = [f'step {i} {k}' for i, (x, y) in enumerate(zip(a, b))
+              for k in x if not torch.equal(bits(x[k]), bits(y[k]))]
+    if differ or len(a) != len(b) or not a:
+        raise AssertionError(f'shard epoch: {len(a)} steps against the CSV '
+                             f'path\'s {len(b)}; differing {differ[:20]}')
+    return by_shards, by_csv, counts
+
+
+def decoded_rows(model_cpu, vocab, res, kind, i):
+    """The latents behind the quality twin's string ``res[kind][i]``: the
+    rows the run decoded (the reconstruction's, or each in-vocab rooting's
+    of the enum-root molecule) beside the CPU port's encode of the same
+    padded batches, or the prior draw on both sides; with the decode's
+    step limit.  Returns (card rows, CPU rows, steps)."""
+    if kind == 'sampled':
+        z = torch.as_tensor(np.random.default_rng(7).standard_normal(
+            (len(res['sampled']), model_cpu.cfg.latent_size)).astype(
+            np.float32)[i:i + 1])
+        return z, z, 120
+    dec = res['decoded'][kind]
+    if kind == 'recon':
+        size, rows = dec['batch_size'], [i]
+    else:
+        size = 64
+        rows = [r for r, s in enumerate(dec['src']) if s == i]
+        if not rows:
+            raise AssertionError(f'quality enum_root[{i}]: no rooting of '
+                                 f'the molecule was decoded')
+    cpu = {}
+    for k in {r // size for r in rows}:
+        cpu[k] = encode(model_cpu, to_model_batch(dec['batches'][k],
+                                                  vocab.mask, pad=False))[0]
+    return (dec['z'][rows], torch.stack([cpu[r // size][r % size]
+                                         for r in rows]), MAX_DECODE_STEP)
+
+
+def quality_near_ties(model, model_cpu, vocab, res, golden, differing):
+    """Each string of the quality twin that differs from the golden, with
+    the first divergence of the card's and the CPU port's per-step logs of
+    the rows behind it (``decoded_rows``), printed; raises unless each is
+    an fp32 near-tie (phase 6's rule) and at most ``MAX_DIFFERING`` differ
+    in all."""
+    n = sum(len(v) for v in differing.values())
+    if n > MAX_DIFFERING:
+        raise AssertionError(f'quality twin: {n} strings differ from the '
+                             f'JAX golden: {differing}')
+    for kind, idx in differing.items():
+        for i in idx:
+            card, cpu, steps = decoded_rows(model_cpu, vocab, res, kind, i)
+            logs = [decode_best(m, vocab, common_atom_vocab,
+                                z.to(next(m.parameters()).device),
+                                max_decode_step=steps, log_steps=True)[0]
+                    for m, z in ((model, card), (model_cpu, cpu))]
+            divs = [first_divergence(a, c) for a, c in zip(*logs)]
+            div = next((d for d in divs if d is not None), None)
+            print(f'quality {kind} differs at {i}: {res[kind][i]} vs '
+                  f'{golden[kind][i]}; first divergence (step, what, CPU '
+                  f'margin) {div}', flush=True)
+            if div is None or not div[2] < NEAR_TIE:
+                raise AssertionError(f'quality {kind}[{i}] differs from the '
+                                     f'JAX golden beyond an fp32 near-tie')
+
+
+def a6_phase(model, model_cpu):
+    """Phase 15: the data CLIs, training from shards, the quality twin and
+    ChemNet on the card (module docstring).  Returns the phase's summary
+    and the launches of its paths: the shard epoch's and the quality
+    run's."""
+    smi = nvidia_smi()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        vocab_path = os.path.join(tmp, 'vocab.txt')
+        get_vocab.main(['--data', DATA, '--min_frequency', '10',
+                        '--output', vocab_path, '--ncpu', str(A6_NCPU)])
+        with open(vocab_path, 'rb') as f, open(VOCAB, 'rb') as g:
+            if f.read() != g.read():
+                raise AssertionError('get_vocab did not write '
+                                     'runs/QUALITY_hopv.json.vocab.txt')
+        out['get_vocab_s'] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        vocab = load_vocab_file(vocab_path)
+        rows = prune_to_vocab(read_csv_data(DATA), vocab, verbose=False)
+        rows_csv = os.path.join(tmp, 'hopv_in_vocab.csv')
+        write_csv(rows_csv, [dict(SMILES=s, HOMO=h, LUMO=l)
+                             for s, h, l in rows])
+        shards = os.path.join(tmp, 'shards')
+        preprocess.main(['--train', rows_csv, '--vocab', vocab_path,
+                         '--out-dir', shards, '--batch_size', '20',
+                         '--seed', '1', '--ncpu', str(A6_NCPU)])
+        out['preprocess_s'] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        by_shards, by_csv, train_counts = shard_epochs(tmp, vocab_path,
+                                                       shards)
+        trainer = by_shards['trainers'][0]
+        n_mols = sum(len(mb.smiles) for mb in by_shards['batches'])
+        groups = profile_train.flush_groups(trainer, by_shards['batches'])
+        windows = profile_train.replay_windows(trainer, groups)
+        bad, lost = profile_train.check_replay_windows(windows,
+                                                       STEP_LAUNCHES)
+        out['shard_epoch'] = dict(
+            steps=len(by_shards['steps']), mols=n_mols,
+            shard_epoch_s=by_shards['seconds'][0],
+            shard_mols_per_s=n_mols / by_shards['seconds'][0],
+            csv_epoch_s=by_csv['seconds'][0],
+            csv_mols_per_s=n_mols / by_csv['seconds'][0],
+            **trainer.graph_stats(), launches=train_counts,
+            replayed_steps=len(windows),
+            launches_per_replayed_step=windows[0]['launches'],
+            ran_per_replayed_step=windows[0]['ran'],
+            device_launches_per_replayed_step=max(
+                windows, key=lambda w: w['records'])['device'],
+            windows_with_lost_records=lost,
+            replayed_step_wall_ms=[w['wall_ms'] for w in windows],
+            replayed_step_device_ms=[w['device_busy_ms'] for w in windows])
+        print('a6 shard epoch ' + json.dumps(out['shard_epoch']), flush=True)
+        if bad:
+            raise AssertionError(f'shard epoch: replayed steps (step, count, '
+                                 f'launches) {bad}, expected {STEP_LAUNCHES}')
+        if min(train_counts.values()) == 0:
+            raise AssertionError(f'a kernel never launched in the shard '
+                                 f'epoch: {train_counts}')
+        out['train_s'] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with open(QUALITY_GOLDEN) as f:
+            golden = json.load(f)
+        reset_counts()
+        res = quality_run.main(QUALITY_FLAGS + [
+            '--out', os.path.join(tmp, 'q.json'), '--device', 'cuda'])
+        quality_counts = read_counts()
+        out['quality_run_s'] = time.perf_counter() - t0
+        out['enum_root'] = dict(api.ENUM_ROOT_STATS)
+        check = quality_run.compare(res, golden)
+        qual = res['qual']
+        out['quality'] = dict(
+            differing=check['differing'], bad=check['bad'],
+            launches=quality_counts, platform=qual['platform'],
+            device_name=qual.get('device_name'),
+            **{k: qual.get(k) for k in (
+                'validity', 'recon_accuracy', 'recon_accuracy_enum_root',
+                'HOMO_MAE', 'LUMO_MAE', 'enum_root_seconds',
+                'decode_seconds', 'wall_seconds')},
+            train_metrics=res['train_metrics'])
+        print('a6 quality ' + json.dumps(out['quality'], default=float),
+              flush=True)
+        if check['bad']:
+            raise AssertionError(f'quality twin against the JAX golden: '
+                                 f'{check["bad"]}')
+        quality_near_ties(model, model_cpu, vocab, res, golden,
+                          check['differing'])
+        if quality_counts['nei_sum'] == 0 or \
+                quality_counts['gather_rows'] == 0:
+            raise AssertionError(f'the quality run launched '
+                                 f'{quality_counts}')
+
+        t0 = time.perf_counter()
+        ckpt = chemnet.random_checkpoint(os.path.join(tmp, 'chemnet.npz'))
+        originals = [o for o, _ in res['recon']]
+        net = chemnet.ChemNet.load(ckpt, 'cuda')
+        net.activations(originals)                     # warm-up
+        t1 = time.perf_counter()
+        acts = net.activations(originals)              # ends on the host
+        chem_s = time.perf_counter() - t1
+        cpu = chemnet.ChemNet.load(ckpt, 'cpu').activations(originals)
+        err = float(np.abs(acts - cpu).max())
+        fcd = chemnet.compute_fcd([d for _, d in res['recon']], originals,
+                                  ckpt, device='cuda')
+        out['chemnet'] = dict(molecules=len(originals),
+                              activations_s=chem_s,
+                              ms_per_molecule=1e3 * chem_s / len(originals),
+                              max_abs_err=err, fcd_recon=fcd)
+        print('a6 chemnet ' + json.dumps(out['chemnet']), flush=True)
+        if not err <= CHEMNET_ATOL:
+            raise AssertionError(f'ChemNet on the card against the CPU '
+                                 f'port: max abs err {err}')
+        out['chemnet_s'] = time.perf_counter() - t0
+    out['launches_per_replayed_step'] = out['shard_epoch'][
+        'launches_per_replayed_step']
+    print('a6 times ' + json.dumps(dict(
+        nvidia_smi=smi, enum_root=out['enum_root'],
+        shard_mols_per_s=out['shard_epoch']['shard_mols_per_s'],
+        chemnet_ms_per_molecule=out['chemnet']['ms_per_molecule'],
+        **{k: v for k, v in out.items() if k.endswith('_s')})), flush=True)
+    counts = {k: train_counts[k] + quality_counts[k] for k in train_counts}
+    return out, counts
 
 
 def main() -> int:
@@ -2063,11 +2356,15 @@ def main() -> int:
     t0 = time.perf_counter()
     a5_summary, a5counts, a5_bf16, a5_rows = a5_phase(vocab, train_batches,
                                                       floor_ms())
+    phase('a5', t0)
+
+    t0 = time.perf_counter()
+    a6_summary, a6counts = a6_phase(model, model_cpu)
     counts = {name: counts[name] + dcounts[name] + ocounts[name] +
               hcounts[name] + tcounts[name] + fcounts[name] +
               htcounts[name] + htbcounts[name] + sacounts[name] +
-              a5counts[name] for name in counts}
-    phase('a5', t0)
+              a5counts[name] + a6counts[name] for name in counts}
+    phase('a6', t0)
 
     keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
             'bound_by', 'floor_ms', 'host_ms')
@@ -2075,7 +2372,7 @@ def main() -> int:
     # B1 inside the turbo decode's propose graph: device launches per decode
     # of each request, and µs per launch from the profiled B64/B120 decodes
     in_graph = dict(
-        device_launches={n: t['nei_sum_device_launches']
+        device_launches={n: t['nei_sum_ran']
                          for n, t in summary['turbo'].items()},
         device_us_per_launch={f'B{b}': p['nei_sum_device_us_per_launch']
                               for (b, path), p in decode_profiles.items()
@@ -2103,7 +2400,11 @@ def main() -> int:
                 'bf16': a5_summary['bf16']['launches_per_replayed_step'][
                     name],
                 'hier_a5': a5_summary['hier a5'][
-                    'launches_per_replayed_step'][name]},
+                    'launches_per_replayed_step'][name],
+                'shards': a6_summary['launches_per_replayed_step'][name]},
+            launches_a6={
+                'shard_epoch': a6_summary['shard_epoch']['launches'][name],
+                'quality_run': a6_summary['quality']['launches'][name]},
             launches_bf16=a5_bf16[name],
             launches_bf16_per_replayed_step={
                 k: a5_summary[k]['launches_bf16_per_replayed_step'][name]

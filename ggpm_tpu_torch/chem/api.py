@@ -75,6 +75,18 @@ def get_smiles_aromatic(mol: Mol) -> str:
     return mol_to_smiles(mol, kekule=False)
 
 
+def sanitize(mol: Optional[Mol], kekule: bool = True) -> Optional[Mol]:
+    """Round-trip through SMILES, mirroring the reference's ``sanitize``
+    (chemutils.py:28-34): returns a fresh canonical Mol or None."""
+    if mol is None:
+        return None
+    try:
+        smiles = mol_to_smiles(mol, kekule=kekule)
+        return mol_from_smiles(smiles)
+    except Exception:
+        return None
+
+
 def canon_smiles(smiles: str) -> Optional[str]:
     """Canonicalize a SMILES string (aromatic form); None if unparseable."""
     mol = get_mol(smiles)

@@ -8,7 +8,7 @@ from __future__ import annotations
 import csv
 import math
 import os
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -21,8 +21,14 @@ from ..models.vae import (HierPropertyVAE, HierPropOptVAE, ModelConfig,
                           init_params)
 from ..train import checkpoint as ckpt
 
-__all__ = ['load_checkpoint', 'maybe_load_pretrained', 'read_csv_data',
-           'setup_model', 'write_csv']
+__all__ = ['load_checkpoint', 'maybe_load_pretrained', 'read_csv_columns',
+           'read_csv_data', 'setup_model', 'write_csv']
+
+# the strings ``pandas.read_csv`` reads as missing by default
+NA_STRINGS = frozenset([
+    '', '#N/A', '#N/A N/A', '#NA', '-1.#IND', '-1.#QNAN', '-NaN', '-nan',
+    '1.#IND', '1.#QNAN', '<NA>', 'N/A', 'NA', 'NULL', 'NaN', 'None', 'n/a',
+    'nan', 'null'])
 
 # the JAX registry (ggpm_tpu/models/vae.py:OPVNet)
 MODELS = {'prop': PropertyVAE, 'prop-opt': PropOptVAE,
@@ -80,19 +86,34 @@ def load_checkpoint(model, configs: Configs) -> str:
     return path
 
 
+def read_csv_columns(path: str) -> Dict[str, List]:
+    """The columns of a CSV with a header, as ``pandas.read_csv`` reads a
+    column of strings: each cell as written, None where pandas reads a
+    missing value (``NA_STRINGS``)."""
+    with open(path, newline='') as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        rows = list(reader)
+    return {name: [None if j >= len(r) or r[j] in NA_STRINGS else r[j]
+                   for r in rows]
+            for j, name in enumerate(header)}
+
+
 def _cell(v) -> str:
     if v is None or (isinstance(v, float) and math.isnan(v)):
         return ''
     return repr(v) if isinstance(v, float) else str(v)
 
 
-def write_csv(path: str, rows: List[Dict]) -> None:
+def write_csv(path: str, rows: List[Dict],
+              columns: Optional[List[str]] = None) -> None:
     """Write ``rows`` (dicts with the same keys, in column order) as
     ``pandas.DataFrame(rows).to_csv(path, index=False)`` writes them: a
     header, floats in their shortest round-trip form, None and NaN as
-    empty cells, minimal quoting, ``\\n`` line ends."""
+    empty cells, minimal quoting, ``\\n`` line ends.  ``columns`` names
+    the header of an empty table."""
     with open(path, 'w', newline='') as f:
         w = csv.writer(f, lineterminator='\n')
-        if rows:
-            w.writerow(list(rows[0]))
+        if rows or columns:
+            w.writerow(list(rows[0]) if rows else columns)
         w.writerows([_cell(v) for v in r.values()] for r in rows)

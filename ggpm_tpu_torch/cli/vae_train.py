@@ -4,14 +4,16 @@ the others of the registry the port has).
 
 Usage:
     python -m ggpm_tpu_torch.cli.vae_train --path-to-config configs.json \\
-        --model-type prop|hier-prop --data-csv data.csv [--device cpu]
+        --model-type prop|hier-prop [--data-csv data.csv] [--device cpu]
 
-Tensorizes the CSV in batches of ``batch_size`` (the last, short batch is
-dropped), pads each to its bucket shape and trains on the card (``cuda``)
-unless ``--device`` says otherwise.  It reads the JAX driver's config keys.
-Preprocessed pickle shards (``configs.data``, the reference DataFolder path)
-hold ``ggpm_tpu`` classes and cannot be read without the JAX package; they
-wait for the port's preprocess CLI (ROADMAP A6).
+With ``--data-csv`` it tensorizes the CSV in batches of ``batch_size`` (the
+last, short batch is dropped) and pads each to its bucket shape; without
+it, it streams the preprocessed pickle shards of the config's ``data``
+folder (``DataFolder``: the port's ``preprocess`` writes them, and it reads
+the JAX package's too), a shard's batches in a new random order each
+epoch, and anneals the learning rate every 1000 steps, as the JAX CLI
+does.  It trains on the card (``cuda``) unless ``--device`` says otherwise,
+and reads the JAX CLI's config keys.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import os
 from ..bridge import load_flax_params, prop_tree, read_checkpoint, to_flax_tree
 from ..configs import Configs
 from ..data.batching import pad_batch
-from ..data.dataset import prune_to_vocab
+from ..data.dataset import DataFolder, prune_to_vocab
 from ..graph.mol_graph import tensorize
 from ..graph.vocab import common_atom_vocab
 from ..train import checkpoint as ckpt
@@ -36,8 +38,8 @@ def main(argv=None):
     parser.add_argument('--path-to-config', required=True)
     parser.add_argument('--model-type', required=True)
     parser.add_argument('--data-csv', default=None,
-                        help='tensorize this CSV (the only data source the '
-                             'port reads so far)')
+                        help='tensorize this CSV instead of reading the '
+                             'config\'s preprocessed shards (data)')
     parser.add_argument('--n-devices', type=int, default=1,
                         help='data-parallel devices: 1 only (ROADMAP A7)')
     parser.add_argument('--tp', type=int, default=1,
@@ -49,32 +51,38 @@ def main(argv=None):
         raise NotImplementedError(
             'data- and tensor-parallel training (--n-devices, --tp above 1) '
             'is ROADMAP A7; the port trains on one device')
-    if not args.data_csv:
-        raise NotImplementedError(
-            'the port reads --data-csv only: preprocessed pickle shards hold '
-            'ggpm_tpu classes and wait for the port\'s preprocess CLI '
-            '(ROADMAP A6)')
 
     configs = Configs(path=args.path_to_config)
+    if not args.data_csv and not configs.get('data'):
+        raise ValueError('no training data: give --data-csv or the config\'s '
+                         'data folder of preprocessed shards')
     model, vocab, mcfg = setup_model(configs, args.model_type,
                                      seed=configs.get('seed', 1))
     configs.to_json(os.path.join(configs.save_dir, 'configs.json'))
     batch_size = configs.get('batch_size', 20)
-    data = prune_to_vocab(read_csv_data(args.data_csv), vocab)
-    rows = [data[i:i + batch_size] for i in range(0, len(data), batch_size)]
-    rows = [b for b in rows if len(b) == batch_size]
-    if not rows:
-        raise ValueError(f'{args.data_csv}: no full batch of {batch_size} '
-                         f'in-vocab molecules')
+    if args.data_csv:
+        data = prune_to_vocab(read_csv_data(args.data_csv), vocab)
+        rows = [data[i:i + batch_size]
+                for i in range(0, len(data), batch_size)]
+        rows = [b for b in rows if len(b) == batch_size]
+        if not rows:
+            raise ValueError(f'{args.data_csv}: no full batch of '
+                             f'{batch_size} in-vocab molecules')
+        steps_per_epoch = len(rows)
 
-    def data_epoch():
-        for b in rows:
-            yield pad_batch(tensorize(b, vocab, common_atom_vocab))
+        def data_epoch():
+            for b in rows:
+                yield pad_batch(tensorize(b, vocab, common_atom_vocab))
+    else:
+        steps_per_epoch = 1000      # the JAX CLI's, for shards
+
+        def data_epoch():
+            yield from DataFolder(configs.data, batch_size)
 
     optimizer = make_optimizer(
         lr=configs.get('lr', 1e-3), clip_norm=configs.get('clip_norm', 20.0),
         anneal_rate=configs.get('anneal_rate', 0.9),
-        steps_per_epoch=len(rows))
+        steps_per_epoch=steps_per_epoch)
     trainer = Trainer(model, optimizer, vocab.mask,
                       beta=configs.get('beta', 0.1),
                       print_iter=configs.get('print_iter', 50),

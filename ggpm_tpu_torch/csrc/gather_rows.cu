@@ -33,10 +33,23 @@ namespace {
 
 constexpr int kMaxThreads = 256;  // threads per block; ops/gather_rows.py agrees
 
+// Launches of this library's kernels that ran on the card, counted by each
+// launch's first thread and read by `ggpm_device_launches`: the profiler
+// can lose a kernel's record, this count misses no launch that ran.
+__device__ unsigned long long g_device_launches = 0;
+
+__device__ __forceinline__ void count_device_launch() {
+  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x | threadIdx.y |
+       threadIdx.z) == 0) {
+    atomicAdd(&g_device_launches, 1ull);
+  }
+}
+
 template <typename V>
 __global__ void __launch_bounds__(kMaxThreads)
 gather_rows_kernel(const void* __restrict__ srcv, const int32_t* __restrict__ idx,
                    void* __restrict__ outv, int64_t n, int64_t cols) {
+  count_device_launch();
   const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.y + threadIdx.y;
   if (row >= n) return;
   const V* from = reinterpret_cast<const V*>(srcv) +
@@ -74,6 +87,14 @@ int ggpm_gather_rows(const void* src, const int32_t* idx, void* out, int64_t n,
       dim3(tpr, rpb), args, 0, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// This library's kernel launches that ran on the current device since the
+// library was loaded (`count_device_launch`), into *out; returns the copy's
+// error (0 on success).
+int ggpm_device_launches(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_device_launches, sizeof(*out)));
 }
 
 }  // extern "C"

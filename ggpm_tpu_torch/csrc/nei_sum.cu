@@ -68,6 +68,18 @@
 namespace {
 
 constexpr int kMaxThreads = 256;  // threads per block; ops/nei_sum.py agrees
+
+// Launches of this library's kernels that ran on the card, counted by each
+// launch's first thread and read by `ggpm_device_launches`: the profiler
+// can lose a kernel's record, this count misses no launch that ran.
+__device__ unsigned long long g_device_launches = 0;
+
+__device__ __forceinline__ void count_device_launch() {
+  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x | threadIdx.y |
+       threadIdx.z) == 0) {
+    atomicAdd(&g_device_launches, 1ull);
+  }
+}
 constexpr int kGroup = 8;         // neighbours in flight in the generic path
 
 enum Kind { kRows = 0, kTiled = 1 };
@@ -234,6 +246,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 nei_sum_kernel_rows(const void* __restrict__ hv, const int32_t* __restrict__ graph,
                     void* __restrict__ outv, int64_t n, int32_t a, int64_t cols) {
   using Ld = typename IO::Ld;
+  count_device_launch();
   const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.y + threadIdx.y;
   if (row >= n) return;
   const Ld* h = reinterpret_cast<const Ld*>(hv);
@@ -258,6 +271,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 nei_sum_kernel_tiled(const void* __restrict__ hv, const int32_t* __restrict__ graph,
                      void* __restrict__ outv, int64_t n, int32_t a, int64_t cols) {
   using Ld = typename IO::Ld;
+  count_device_launch();
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.y;
   int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.y + threadIdx.y;
   const Ld* h = reinterpret_cast<const Ld*>(hv);
@@ -366,6 +380,14 @@ int ggpm_nei_sum(const void* h, const int32_t* graph, void* out, int64_t n,
       dim3(tpr, rpb), args, 0, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// This library's kernel launches that ran on the current device since the
+// library was loaded (`count_device_launch`), into *out; returns the copy's
+// error (0 on success).
+int ggpm_device_launches(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_device_launches, sizeof(*out)));
 }
 
 }  // extern "C"

@@ -75,6 +75,18 @@
 namespace {
 
 constexpr int kMaxThreads = 384;  // threads per block; ops/nei_sum.py agrees
+
+// Launches of this library's kernels that ran on the card, counted by each
+// launch's first thread and read by `ggpm_device_launches`: the profiler
+// can lose a kernel's record, this count misses no launch that ran.
+__device__ unsigned long long g_device_launches = 0;
+
+__device__ __forceinline__ void count_device_launch() {
+  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x | threadIdx.y |
+       threadIdx.z) == 0) {
+    atomicAdd(&g_device_launches, 1ull);
+  }
+}
 constexpr int kGroup = 8;         // entries in flight in the generic path
 
 __device__ __forceinline__ void add_to(float& acc, float v) { acc += v; }
@@ -340,6 +352,7 @@ transpose_sum_kernel(const void* __restrict__ gv, const int32_t* __restrict__ t_
                      int64_t n, int32_t k, int32_t div, int64_t cols) {
   using Ld = typename IO::Ld;
   using Acc = typename IO::Acc;
+  count_device_launch();
   const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.y + threadIdx.y;
   if (row >= n) return;
   const Ld* g = reinterpret_cast<const Ld*>(gv);
@@ -456,6 +469,14 @@ int ggpm_transpose_sum(const void* g, const int32_t* t_idx, const float* t_mask,
       dim3(tpr, rpb), args, 0, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// This library's kernel launches that ran on the current device since the
+// library was loaded (`count_device_launch`), into *out; returns the copy's
+// error (0 on success).
+int ggpm_device_launches(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_device_launches, sizeof(*out)));
 }
 
 }  // extern "C"

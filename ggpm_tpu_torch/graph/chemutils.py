@@ -60,6 +60,29 @@ def find_fragments(mol: Mol) -> List[Tuple[str, Set[int]]]:
     return hopts
 
 
+def get_leaves(mol: Mol) -> List[int]:
+    """Leaf atoms + representative atoms of leaf rings (reference
+    ``get_leaves``, chemutils.py:93-113); used for root enumeration."""
+    leaf_atoms = [i for i in range(mol.num_atoms) if mol.degree(i) == 1]
+
+    clusters = []
+    for b in mol.bonds:
+        if not mol.bond_in_ring(b.a1, b.a2):
+            clusters.append({b.a1, b.a2})
+    rings = [set(r) for r in mol.sssr()]
+    clusters.extend(rings)
+
+    leaf_rings = []
+    for r in rings:
+        inters = [c for c in clusters if r != c and len(r & c) > 0]
+        if len(inters) > 1:
+            continue
+        nodes = [i for i in r if mol.degree(i) == 2]
+        if nodes:
+            leaf_rings.append(max(nodes))
+    return leaf_atoms + leaf_rings
+
+
 def is_anchor(mol: Mol, atom_idx: int, inter_atoms) -> bool:
     """An attachment atom that also touches the motif interior
     (reference ``is_anchor``, chemutils.py:233-237; neighbours are taken in the

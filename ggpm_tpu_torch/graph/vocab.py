@@ -117,7 +117,14 @@ def load_vocab_file(path: str) -> PairVocab:
     ``smiles ismiles`` files, which carry none."""
     with open(path) as f:
         lines = [x.strip('\r\n ').split() for x in f if x.strip()]
-    canon = (canon_smiles(x[0]) for x in lines
-             if len(x) >= 3 and x[-1] == 'True')
     return PairVocab([(x[0], x[1]) for x in lines],
-                     fragments={c for c in canon if c is not None})
+                     fragments=canon_fragments(
+                         x[0] for x in lines
+                         if len(x) >= 3 and x[-1] == 'True'))
+
+
+def canon_fragments(fragments: Iterable[str]) -> FrozenSet[str]:
+    """The canonical forms of ``fragments``, as motif pooling compares them
+    (JAX ``MolGraph.load_fragments``)."""
+    canon = (canon_smiles(x) for x in fragments)
+    return frozenset(c for c in canon if c is not None)

@@ -1,3 +1,9 @@
+import ctypes
+from typing import Dict
+
+import torch
+
+from .cuda_build import library
 from .gather_rows import gather_nd_t, gather_rows
 from .graph_ops import (build_transpose, gather_nd, scatter_rows, zero_row0,
                         zero_row0_)
@@ -34,3 +40,23 @@ def add_replay(launches, launches_bf16=()) -> None:
         w.launches += n
     for w, n in launches_bf16:
         w.launches_bf16 += n
+
+
+def device_launches() -> Dict[str, int]:
+    """Each counted wrapper's kernel launches that ran on the current CUDA
+    device since its library was loaded, as the kernels count them
+    themselves (``ggpm_device_launches`` in ``csrc/<name>.cu``), after the
+    device has finished its work.  The difference of two reads is the
+    launches that ran between them, eager or replayed from a graph; unlike
+    the profiler's device records, of which it can lose some, it misses
+    none.  Not to be read while a graph is being captured."""
+    torch.cuda.synchronize()
+    out = {}
+    for w in COUNTED:
+        n = ctypes.c_ulonglong()
+        err = library(w.__name__).ggpm_device_launches(ctypes.byref(n))
+        if err:
+            raise RuntimeError(f'{w.__name__}: reading the device launch '
+                               f'count failed: CUDA error {err}')
+        out[w.__name__] = n.value
+    return out

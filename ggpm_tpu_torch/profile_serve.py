@@ -32,6 +32,7 @@ import os
 import subprocess
 import time
 from dataclasses import dataclass
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -47,7 +48,7 @@ from .graph.vocab import common_atom_vocab
 from .latent.control import LatentOptimizer
 from .models import decode, inc_graph
 from .models.api import encode
-from .ops import gather_rows, nei_sum, transpose_sum
+from .ops import device_launches, gather_rows, nei_sum, transpose_sum
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_MOLS = 64      # the request chip_smoke.py sends
@@ -115,7 +116,7 @@ class DeviceEvents:
     graph_count: int = 0
 
 
-def profiled(fn, reps: int = 1):
+def profiled(fn, reps: int = 1, ran: Optional[Dict[str, int]] = None):
     """Device busy µs per run of ``fn`` and its device events by name
     (``DeviceEvents``), from torch.profiler tracing the device alone: a
     CPU op's self device time repeats its kernels' own, and the host's
@@ -123,10 +124,16 @@ def profiled(fn, reps: int = 1):
     the profiler's raw records: ``key_averages`` builds a Python object a
     record, about 60 µs each, a minute for a hier training epoch's
     920,000.  A kernel that a graph replay launched shares its correlation
-    id with the replay's ``cudaGraphLaunch`` runtime event."""
+    id with the replay's ``cudaGraphLaunch`` runtime event.  With ``ran``
+    (a dict), fills it with each port kernel's launches that ran in the
+    runs by the kernels' own device counts (``ops.device_launches``): the
+    profiler loses a record now and then (``profiler_loss``)."""
+    before = device_launches() if ran is not None else None
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
+    if ran is not None:
+        ran.update({k: v - before[k] for k, v in device_launches().items()})
     by_name, corrs, graph_launches = {}, {}, set()
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
@@ -141,6 +148,30 @@ def profiled(fn, reps: int = 1):
             agg.graph_count = sum(c in graph_launches for c in corrs[name])
     events = list(by_name.values())
     return sum(_device_us(e) for e in events) / reps, events
+
+
+def profiler_loss(device: Dict[str, float], ran: Dict[str, float]
+                  ) -> Dict[str, float]:
+    """Per port kernel whose profiler records (``device``, launches by
+    kernel) differ from the launches that ran (``ran``, from
+    ``profiled``): the records the profiler lost, ``ran - device``.  On
+    the card (chip_smoke.py) it lost one of a replayed step's 20
+    ``gather_rows`` records in every window of a signature, 15 of a
+    decode's 1,237 ``nei_sum`` records and 364 of an epoch's 105,600.  A
+    negative entry (more records than launches) is no loss but a fault."""
+    return {k: ran[k] - device.get(k, 0) for k in ran
+            if ran[k] != device.get(k, 0)}
+
+
+def by_kernel(events, attr: str = 'count') -> Dict[str, float]:
+    """The port kernels' device records in ``events`` (``profiled``),
+    summed by kernel: their launches, or with ``attr='graph_count'`` those
+    made by graph replays."""
+    out = {w.__name__: 0 for w in _WRAPPERS}
+    for e in events:
+        if kernel_of(e.key):
+            out[kernel_of(e.key)] += getattr(e, attr)
+    return out
 
 
 def top_kernels(events, reps: int = 1, n: int = 12):
@@ -200,8 +231,10 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
     propose round, ``profile_round``).  From a profiled repeat: device
     busy time, kernel launches, and ``nei_sum_kernel``'s device launches
     (of them, those made by CUDA graph replays) and µs per launch, beside
-    the launches the ``nei_sum`` wrapper counted in it.  The idle share is one minus busy over the unprofiled wall
-    time."""
+    the launches the ``nei_sum`` wrapper counted in it, those that ran by
+    the kernel's own device count (``nei_sum_ran``) and the records the
+    profiler lost (``profiler_lost``, ``profiler_loss``).  The idle share
+    is one minus busy over the unprofiled wall time."""
     paths = ('turbo', 'exact', 'hier', 'hier-turbo')
     if path not in paths:
         raise ValueError(f'profile_decode: no decode path {path!r}')
@@ -238,8 +271,8 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
         wall = time.perf_counter() - t0
     launches = nei_sum.launches - launches
     stats = dict(decode.TURBO_STATS if turbo else decode.HIER_STATS)
-    counted = nei_sum.launches
-    busy_us, events = profiled(run)
+    counted, ran = nei_sum.launches, {}
+    busy_us, events = profiled(run, ran=ran)
     counted = nei_sum.launches - counted
     nei = [e for e in events if 'nei_sum_kernel' in e.key]
     chem = acc['_try_assemble']
@@ -257,6 +290,8 @@ def profile_decode(model, vocab, z, path: str = 'turbo', **decode_kwargs
                nei_sum_device_launches=sum(e.count for e in nei),
                nei_sum_graph_device_launches=sum(e.graph_count for e in nei),
                profiled_nei_sum_launches=counted,
+               nei_sum_ran=ran['nei_sum'],
+               profiler_lost=profiler_loss(by_kernel(events), ran),
                nei_sum_device_us_per_launch=(
                    sum(_device_us(e) for e in nei) / sum(e.count for e in nei)
                    if nei else None),
@@ -346,8 +381,10 @@ def profile_optimize(server, rows, policy: str, **opt_kwargs) -> dict:
     stopped by delta and by patience; decode seconds with the host split
     of ``profile_decode``, and the rest.  From a profiled request: the
     device's busy ms, idle share and launches, the kernel wrappers' launch
-    counts beside ``nei_sum_kernel``'s device events, the turbo path's
-    rounds and steps, the search's stats and the answer; and from the search alone,
+    counts beside ``nei_sum_kernel``'s device events and the launches
+    that ran by the kernels' own device counts (``ran``, with the records
+    the profiler lost, ``profiler_lost``), the turbo path's rounds and
+    steps, the search's stats and the answer; and from the search alone,
     profiled, its device busy ms, idle share and launches.  Each idle share
     is one minus the busy time over the wall time of the same profiled
     run."""
@@ -373,8 +410,8 @@ def profile_optimize(server, rows, policy: str, **opt_kwargs) -> dict:
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
-    before = {k.__name__: k.launches for k in _WRAPPERS}
-    busy_us, events = profiled(run)
+    before, ran = {k.__name__: k.launches for k in _WRAPPERS}, {}
+    busy_us, events = profiled(run, ran=ran)
     profiled_wall = walls[-1]
     launches = {k.__name__: k.launches - before[k.__name__]
                 for k in _WRAPPERS}
@@ -409,6 +446,8 @@ def profile_optimize(server, rows, policy: str, **opt_kwargs) -> dict:
         device_launches=sum(e.count for e in events),
         launches=launches,
         nei_sum_device_launches=sum(e.count for e in nei),
+        ran=ran, device=by_kernel(events),
+        profiler_lost=profiler_loss(by_kernel(events), ran),
         search_device_busy_ms=search_busy_us / 1e3,
         search_device_idle_share=1.0 - search_busy_us / 1e6 / walls[-1],
         search_device_launches=sum(e.count for e in search_events),
@@ -572,10 +611,7 @@ def encode_profile(model, vocab, rows) -> dict:
     before = {k.__name__: k.launches for k in _WRAPPERS}
     busy_us, events = profiled(run, REPS)
     nei = [e for e in events if 'nei_sum_kernel' in e.key]
-    device = {k.__name__: 0.0 for k in _WRAPPERS}
-    for e in events:
-        if kernel_of(e.key):
-            device[kernel_of(e.key)] += e.count / REPS
+    device = {k: n / REPS for k, n in by_kernel(events).items()}
     return dict(
         n_mols=len(rows),
         tree_shape=dict(nodes=int(batch['tree']['fnode'].shape[0]),

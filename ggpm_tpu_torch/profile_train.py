@@ -32,6 +32,7 @@ gives the hier family's step, which chip_smoke.py profiles alike.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -51,9 +52,9 @@ from .models.vae import (HierPropertyVAE, HierPropOptVAE, ModelConfig,
                          PropertyVAE, PropOptSchedulingVAE, PropOptVAE,
                          init_params)
 from .ops import gather_rows, nei_sum, transpose_sum
-from .profile_serve import (HIER_CKPT, HIER_VOCAB, _device_us, kernel_of,
-                            profiled, top_kernels)
-from .train.loop import Trainer, flushes, signature
+from .profile_serve import (HIER_CKPT, HIER_VOCAB, _device_us, by_kernel,
+                            kernel_of, profiled, profiler_loss, top_kernels)
+from .train.loop import MetricAccumulator, Trainer, flushes, signature
 from .train.optim import (default_group_fn, make_multi_optimizer,
                           make_optimizer)
 
@@ -746,6 +747,47 @@ def _counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+@contextlib.contextmanager
+def recorded_epochs():
+    """Records what every ``Trainer.train_epoch`` run inside the context
+    does, for a caller that drives a CLI: ``trainers`` (each trainer whose
+    epoch ran), ``batches`` (the batches as they arrived), ``steps`` (each
+    step's metrics as device values, in the order the steps ran) and
+    ``seconds`` (each epoch's wall time, to the device's end on a CUDA
+    device).  It wraps ``Trainer.train_epoch`` and
+    ``MetricAccumulator.add``, which every flush of an epoch calls once,
+    and restores them on exit."""
+    rec = dict(trainers=[], batches=[], steps=[], seconds=[])
+    train_epoch, add = Trainer.train_epoch, MetricAccumulator.add
+
+    def recorded_epoch(trainer, data, *args, **kwargs):
+        if trainer not in rec['trainers']:
+            rec['trainers'].append(trainer)
+
+        def arrivals():
+            for mb in data:
+                rec['batches'].append(mb)
+                yield mb
+        t0 = time.perf_counter()
+        stop = train_epoch(trainer, arrivals(), *args, **kwargs)
+        if trainer.device.type == 'cuda':
+            torch.cuda.synchronize(trainer.device)
+        rec['seconds'].append(time.perf_counter() - t0)
+        return stop
+
+    def recorded_add(acc, metrics):
+        flat = {k: v.reshape(-1) for k, v in metrics.items()}
+        n = len(next(iter(flat.values())))
+        rec['steps'] += [{k: v[i] for k, v in flat.items()} for i in range(n)]
+        add(acc, metrics)
+
+    Trainer.train_epoch, MetricAccumulator.add = recorded_epoch, recorded_add
+    try:
+        yield rec
+    finally:
+        Trainer.train_epoch, MetricAccumulator.add = train_epoch, add
+
+
 def flush_groups(trainer: Trainer, batches: List[MolGraphBatch]
                  ) -> List[List[dict]]:
     """``batches`` on the device, grouped in the flushes the JAX
@@ -786,8 +828,9 @@ def replay_windows(trainer: Trainer, groups: List[List[dict]]
                    ) -> List[dict]:
     """Each step of the flushes of two or more of ``groups`` (their graphs
     already captured) replayed in a profiler window of its own: the
-    batch's signature, the wrappers' launches (``launches``, and those on
-    bf16 tables, ``launches_bf16``), the device launches of each kernel
+    wrappers' launches (``launches``, and those on bf16 tables,
+    ``launches_bf16``), the launches that ran by the kernels' own device
+    counts (``ran``), the profiler's device records of each kernel
     (``device``, and by the kernel's full name, whose template names a
     bf16 sum's, ``device_by_name``), the window's device records
     (``records``), and the replay's wall ms under the profiler and device
@@ -796,23 +839,22 @@ def replay_windows(trainer: Trainer, groups: List[List[dict]]
     for db in (db for g in groups if len(g) > 1 for db in g):
         before = _counts()
         before_bf16 = {k: w.launches_bf16 for k, w in KERNELS.items()}
-        wall = []
+        wall, ran = [], {}
 
         def replay(db=db):
             t0 = time.perf_counter()
             trainer.scan_steps([db])
             torch.cuda.synchronize()
             wall.append(1e3 * (time.perf_counter() - t0))
-        busy_us, events = profiled(replay)
+        busy_us, events = profiled(replay, ran=ran)
         out.append(dict(
-            signature=signature(db), scan_steps=db['plan']['mess'].shape[0],
+            scan_steps=db['plan']['mess'].shape[0],
             wall_ms=wall[0], device_busy_ms=busy_us / 1e3,
             launches={k: float(v - before[k]) for k, v in _counts().items()},
             launches_bf16={k: float(w.launches_bf16 - before_bf16[k])
                            for k, w in KERNELS.items()},
-            device={name: float(sum(e.count for e in events
-                                    if kernel_of(e.key) == name))
-                    for name in KERNELS},
+            ran={k: float(v) for k, v in ran.items()},
+            device={k: float(v) for k, v in by_kernel(events).items()},
             device_by_name={e.key: e.count for e in events
                             if kernel_of(e.key) in KERNELS},
             records=sum(e.count for e in events)))
@@ -823,25 +865,23 @@ def check_replay_windows(windows: List[dict], expected
                          ) -> Tuple[list, list]:
     """Where ``replay_windows`` break ``expected`` launches a replayed
     step (a dict, or a function of the window's ``scan_steps`` giving
-    one), and the windows the profiler lost records in.  The wrappers'
-    counts are held in every window.  Every replay of one graph runs the
-    same kernels, so a window with fewer device records than the most a
-    window of its signature holds lost records in the profiler (on the
-    card it lost 364 of 105,600 in one of three identical windows, and 14
-    of one window's 20 ``gather_rows``); the device launches are held in
-    the windows that hold the most, one or more a signature."""
-    most: Dict[Tuple, int] = {}
-    for w in windows:
-        most[w['signature']] = max(most.get(w['signature'], 0), w['records'])
+    one), and the windows whose device records the profiler lost.  In
+    every window the wrappers' counts (``launches``) and the launches that
+    ran by the kernels' own device counts (``ran``) are held; the
+    profiler's records of a kernel (``device``) may fall short of those
+    that ran, which is the profiler's loss (``profiler_loss``), reported
+    as ``(window, {kernel: records lost})``, but never exceed them."""
     want = expected if callable(expected) else lambda _: expected
-    bad = [(i, 'launches', w['launches']) for i, w in enumerate(windows)
-           if w['launches'] != want(w.get('scan_steps'))]
-    bad += [(i, 'device', w['device']) for i, w in enumerate(windows)
-            if w['records'] == most[w['signature']] and
-            w['device'] != want(w.get('scan_steps'))]
-    lost = [(i, most[w['signature']] - w['records'])
-            for i, w in enumerate(windows)
-            if w['records'] < most[w['signature']]]
+    bad = [(i, key, w[key]) for i, w in enumerate(windows)
+           for key in ('launches', 'ran')
+           if w[key] != want(w.get('scan_steps'))]
+    lost = []
+    for i, w in enumerate(windows):
+        loss = profiler_loss(w['device'], w['ran'])
+        if any(v < 0 for v in loss.values()):
+            bad.append((i, 'device', w['device']))
+        elif loss:
+            lost.append((i, loss))
     return bad, lost
 
 
@@ -909,9 +949,7 @@ def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch],
         device_copies_per_step=sum(e.count for e in copies) / n_steps,
         kernel_launches_per_step=per_kernel,
         kernel_device_launches_per_step={
-            name: sum(e.count for e in events
-                      if kernel_of(e.key) == name) / n_steps
-            for name in KERNELS},
+            name: n / n_steps for name, n in by_kernel(events).items()},
         kernel_device_us_per_step={
             name: sum(_device_us(e) for e in events
                       if kernel_of(e.key) == name) / n_steps

@@ -100,7 +100,11 @@ def test_config_dtype_reaches_the_depth_loop(name, dtype, monkeypatch):
     data = motif_data()
     cfg = ModelConfig.from_configs(Configs(args=dict(compute_dtype=name)),
                                    data['vocab'])
-    model = PropertyVAE(cfg)
+    # a fixed init: the two losses differ by a few f32 ulps, and about one
+    # random init in 40 rounds them to the same float
+    with torch.random.fork_rng():
+        torch.manual_seed(0)
+        model = PropertyVAE(cfg)
     f32 = PropertyVAE(ModelConfig.from_configs(Configs(args={}),
                                                data['vocab']))
     f32.load_state_dict(model.state_dict())

@@ -237,3 +237,39 @@ def test_kernels_refuse_a_gradient_without_the_transpose(cuda):
     with torch.no_grad():
         nei_sum(h, graph)
         gather_rows(h, graph)
+
+
+def test_device_launches_count_every_launch_that_ran(cuda):
+    """``ops.device_launches``: each kernel counts its own launches on the
+    card, one a launch, eager and replayed from a CUDA graph alike (the
+    count the launch checks of ``chip_smoke.py`` hold, which the
+    profiler's records may fall short of)."""
+    from ggpm_tpu_torch.ops import device_launches
+    graph, t_idx, t_mask, g, div = _transpose_inputs(1577, 250, 853, 6, True,
+                                                     cuda)
+    h = torch.randn((1577, 250), device=cuda)
+
+    def calls():
+        return (nei_sum(h, graph), gather_rows(h, graph), gather_rows(h, graph),
+                transpose_sum(g, t_idx, t_mask, div))
+    want = {'nei_sum': 1, 'gather_rows': 2, 'transpose_sum': 1}
+    before = device_launches()
+    eager = calls()
+    after = device_launches()
+    assert {k: after[k] - before[k] for k in want} == want
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    replay = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(replay):
+        captured = calls()
+    before = device_launches()
+    for _ in range(5):
+        replay.replay()
+    after = device_launches()
+    assert {k: after[k] - before[k] for k in want} == \
+        {k: 5 * n for k, n in want.items()}
+    for e, c in zip(eager, captured):
+        assert torch.equal(e, c)

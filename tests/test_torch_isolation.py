@@ -1,5 +1,5 @@
-"""The port stands alone: it imports neither JAX, flax, msgpack, networkx
-nor anything of ``ggpm_tpu``, and chip_smoke.py fails without a GPU or
+"""The port stands alone: it imports neither JAX, flax, msgpack, networkx,
+pandas nor anything of ``ggpm_tpu``, and chip_smoke.py fails without a GPU or
 without the rest of the repo."""
 
 import importlib.util
@@ -14,7 +14,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, 'ggpm_tpu_torch')
-FORBIDDEN = ('jax', 'flax', 'optax', 'msgpack', 'networkx')
+FORBIDDEN = ('jax', 'flax', 'optax', 'msgpack', 'networkx', 'pandas')
 
 _IMPORT_ALL = f"""
 import importlib, importlib.util, pkgutil, sys

@@ -325,28 +325,35 @@ def test_metric_rows_and_flags_count_every_step():
                           torch.tensor([True, False, True])]) == 4
 
 
-@pytest.mark.parametrize('case', ['complete', 'lost', 'short', 'wrapper'])
+@pytest.mark.parametrize('case', ['complete', 'lost', 'short', 'wrapper',
+                                  'invented'])
 def test_replay_windows_hold_complete_windows(case):
-    """``profile_train.check_replay_windows``: the wrappers' launches are
-    held in every window, the device launches in the windows with the
-    most device records of their signature; a window with fewer lost
-    records in the profiler and is reported, not held."""
+    """``profile_train.check_replay_windows``: the wrappers' launches and
+    those that ran by the kernels' own device counts are held in every
+    window; the profiler's records may fall short of those that ran (its
+    loss is reported, not held) but never exceed them."""
     want = {'nei_sum': 3.0, 'transpose_sum': 22.0, 'gather_rows': 20.0}
-    windows = [dict(signature=s, launches=dict(want), device=dict(want),
-                    records=6500 + s) for s in (0, 0, 1)]
+    windows = [dict(launches=dict(want), ran=dict(want), device=dict(want),
+                    records=6500) for _ in range(3)]
     if case == 'lost':
         windows[1].update(records=6486, device=dict(want, gather_rows=6.0))
+        for w in windows[::2]:
+            w['device'] = dict(want, gather_rows=19.0)
     elif case == 'short':
         for w in windows[:2]:
-            w['device'] = dict(want, gather_rows=19.0)
+            w['ran'] = w['device'] = dict(want, gather_rows=19.0)
     elif case == 'wrapper':
         windows[1]['launches'] = dict(want, nei_sum=2.0)
+    elif case == 'invented':
+        windows[2]['device'] = dict(want, transpose_sum=23.0)
     bad, lost = profile_train.check_replay_windows(windows, want)
-    assert lost == ([(1, 14)] if case == 'lost' else [])
+    assert lost == ([(0, {'gather_rows': 1.0}), (1, {'gather_rows': 14.0}),
+                     (2, {'gather_rows': 1.0})] if case == 'lost' else [])
     assert bad == {'complete': [], 'lost': [],
-                   'short': [(0, 'device', windows[0]['device']),
-                             (1, 'device', windows[1]['device'])],
-                   'wrapper': [(1, 'launches', windows[1]['launches'])]}[case]
+                   'short': [(0, 'ran', windows[0]['ran']),
+                             (1, 'ran', windows[1]['ran'])],
+                   'wrapper': [(1, 'launches', windows[1]['launches'])],
+                   'invented': [(2, 'device', windows[2]['device'])]}[case]
 
 
 # -- static transpose widths -----------------------------------------------

@@ -106,9 +106,9 @@ def test_graph_epochs_equal_eager_epochs(card, kind, noise):
 
 def test_replayed_steps_launch_each_kernel(card):
     """A replayed step adds 3 / 22 / 20 launches of ``nei_sum`` /
-    ``transpose_sum`` / ``gather_rows`` to the wrappers' counts, and the
-    profiler sees as many device launches of each, one window a step, in
-    the windows where it lost no records
+    ``transpose_sum`` / ``gather_rows`` to the wrappers' counts, and as
+    many of each run on the card by the kernels' own device counts, one
+    profiler window a step; the profiler's records are at most as many
     (``profile_train.check_replay_windows``)."""
     tr = _trainer(card, 'prop')
     groups = profile_train.flush_groups(tr, card['batches'])

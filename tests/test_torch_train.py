@@ -731,7 +731,9 @@ def test_vae_train_cli_one_epoch(data, tmp_path):
     for bad in (['--n-devices', '2'], ['--tp', '2']):
         with pytest.raises(NotImplementedError, match='A7'):
             vae_train.main(args + bad)
-    with pytest.raises(NotImplementedError, match='A6'):
+    # without --data-csv it reads the config's shards, and this config
+    # names none
+    with pytest.raises(ValueError, match='no training data'):
         vae_train.main(args[:4] + ['--device', 'cpu'])
     # pretrain -> fine-tune: the encoder of the first run's checkpoint
     cfg.update(saved_model=str(path), load_encoder_only=True, epoch=0,

@@ -101,21 +101,22 @@ def test_turbo_equals_exact_on_the_card(card):
 @pytest.mark.parametrize('case', ['one-round', 'fallback'])
 def test_turbo_counts_every_b1_launch(card, case):
     """A turbo decode that captures its graph (and, under a round cap of
-    one-step rungs, sends samples to the exact path): B1's device launches
-    (the profiler's) equal the wrapper's count, which equals the steps the
-    rounds ran plus the steps run outside them."""
+    one-step rungs, sends samples to the exact path): B1's launches that
+    ran on the card (the kernel's own device count) equal the wrapper's
+    count, which equals the steps the rounds ran plus the steps run
+    outside them; the profiler's records of them are at most as many."""
     from ggpm_tpu_torch.ops import nei_sum
     from ggpm_tpu_torch.profile_serve import profiled
     kw = dict(ladder=(1, 2), max_rounds=2) if case == 'fallback' else {}
     decode._PROPOSERS.clear()
-    before = nei_sum.launches
+    before, ran = nei_sum.launches, {}
     _, events = profiled(lambda: decode.decode_motif_turbo(
         card['model'], card['vocab'], common_atom_vocab, card['z'][:16],
-        max_decode_step=T, **kw))
+        max_decode_step=T, **kw), ran=ran)
     st = decode.TURBO_STATS
     device = sum(e.count for e in events if 'nei_sum_kernel' in e.key)
-    assert device == nei_sum.launches - before == \
-        sum(st['steps_run']) + st['eager_steps'], st
+    assert ran['nei_sum'] == nei_sum.launches - before == \
+        sum(st['steps_run']) + st['eager_steps'] >= device, st
     if case == 'fallback':    # a capture a rung, and the exact path's steps
         assert st['fallbacks'] > 0 and st['eager_steps'] > len(st['rungs'])
     else:                     # the one capture
