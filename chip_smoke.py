@@ -358,6 +358,44 @@ script exits non-zero:
              phase's seconds, the enum-root evaluation's rootings and
              seconds, the shard epoch's mols/s and ChemNet's ms a molecule
              beside ``nvidia-smi``'s name and power limit.
+16. a7    — data-parallel training, the ChemBERTa baseline, a trace.
+             (a) NCCL at world size 1: the ``prop`` epoch over the 17 HOPV
+             batches from the checkpoint's ``vae/`` by a ``Trainer`` on a
+             1-rank mesh, its flushes replayed from CUDA graphs with the
+             step's all-reduce captured inside, bit for bit the one-card
+             ``Trainer``'s epoch (parameters, moments, counts), one
+             all-reduce a step counted at the call; each replayed step
+             launches 3 / 22 / 20 by the wrappers and the device events
+             (``a7 dp nccl``).  (e) ``profiling.trace`` around one replayed
+             DP step writes a Chrome trace that parses and holds its
+             ``named_scope`` (``a7 trace``; no count is held on the
+             profiler's records).  (b) 2 gloo ranks on the card (NCCL
+             refuses two ranks a card), three DP steps from the checkpoint
+             over HOPV batches 0-5 in the Trainer's groups (0, 1), (2, 4),
+             (3, 3), every rank's parameters equal bit for bit, and equal
+             bit for bit to one process taking the same steps on the card
+             without a collective (``profile_dp.emulated_steps``, ``a7 dp
+             emulated``); held to ``goldens/train_dp2_hopv.json`` (JAX's
+             ``make_dp_train_step`` on 2 virtual devices) by the prop rule
+             of ``profile_train.check_golden``, the leaves' updates at
+             step 1 (the card's own arithmetic, in that one process as in
+             the ranks, moves one leaf's step-2 update 1.01e-3 from JAX's
+             on the CPU; the CPU port meets the whole rule,
+             tests/test_torch_parallel_golden.py), and printed for every
+             step (``update_deviation``); one all-reduce a step, each rank
+             launching 3 / 22 / 20 a step (``a7 dp2``).  (c) dp 2 × tp
+             2, 4 gloo ranks, held alike to the same golden, each rank
+             holding 190 of the 380 attachment rows and ``icls`` columns
+             and of their moments (``a7 dp2xtp2``).  (d) ChemBERTa at the
+             default width on ``data/hopv15.csv`` in batches of 16: three steps at dropout
+             0 held to ``goldens/chemberta_hopv.json`` by
+             ``profile_chemberta.check_golden``, steps/s and mols/s of 20
+             steps at dropout 0.1 by ``profiling.Throughput`` (``a7
+             chemberta``), then the ``chemberta_pr2_fine_tune`` CLI for 2
+             epochs at dropout 0.1 on 300 rows with the other 50 for
+             validation, its checkpoint reloaded with equal predictions
+             (``a7 chemberta cli``); ``a7 times`` the seconds.  The ranks'
+             launches are added into the kernels line's totals.
 
 Where a phase holds launches "by the device events", it holds the
 kernels' own device counts: each kernel's first thread counts its launch on
@@ -388,12 +426,13 @@ import urllib.request
 import numpy as np
 import torch
 
-from ggpm_tpu_torch import (kernel_bench, profile_serve, profile_train,
-                            quality_run)
-from ggpm_tpu_torch.bridge import load_model
+from ggpm_tpu_torch import (kernel_bench, profile_chemberta, profile_dp,
+                            profile_serve, profile_train, quality_run)
+from ggpm_tpu_torch.bridge import chemberta_to_flax, flatten, load_model
 from ggpm_tpu_torch.chem import canon_smiles
 from ggpm_tpu_torch.data.batching import to_model_batch, train_tables
-from ggpm_tpu_torch.cli import get_vocab, preprocess, vae_train
+from ggpm_tpu_torch.cli import (chemberta_pr2_fine_tune, get_vocab,
+                                preprocess, vae_train)
 from ggpm_tpu_torch.cli.common import write_csv
 from ggpm_tpu_torch.data.dataset import prune_to_vocab, read_csv_data
 from ggpm_tpu_torch.eval import chemnet
@@ -401,7 +440,7 @@ from ggpm_tpu_torch.graph.mol_graph import tensorize
 from ggpm_tpu_torch.graph.vocab import common_atom_vocab, load_vocab_file
 from ggpm_tpu_torch.kernel_bench import (device_ms, eager_ms, floor_ms,
                                          nvidia_smi)
-from ggpm_tpu_torch.models import api
+from ggpm_tpu_torch.models import api, chemberta
 from ggpm_tpu_torch.models.api import encode
 from ggpm_tpu_torch.models import decode
 from ggpm_tpu_torch.models.decode import decode_best
@@ -413,7 +452,10 @@ from ggpm_tpu_torch.profile_serve import (HIER_CKPT, HIER_VOCAB,
                                           optimize_targets, profile_decode,
                                           profile_optimize, profiled,
                                           profiler_loss)
+from ggpm_tpu_torch.parallel import mesh as pmesh
+from ggpm_tpu_torch.parallel.distributed import init_distributed
 from ggpm_tpu_torch.serve import GgpmServer
+from ggpm_tpu_torch.train import profiling
 from ggpm_tpu_torch.train.loop import flushes, signature, to_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -451,6 +493,8 @@ HIER_A5_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                               'train_hier_gru_bf16_hopv.json')
 DECODE_GRU_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                                  'decode_gru_hopv16.json')
+DP_GOLDEN = profile_dp.GOLDEN
+CHEMBERTA_GOLDEN = profile_chemberta.GOLDEN
 QUALITY_GOLDEN = os.path.join(ROOT, 'ggpm_tpu_torch', 'goldens',
                               'quality_hopv60.json')
 N_MOLS = 64
@@ -2225,6 +2269,200 @@ def a6_phase(model, model_cpu):
     return out, counts
 
 
+# phase 16: the steps whose leaf updates the DP golden holds (docstring; the
+# metrics and GNorm at all three), and the rows of each split leaf and of
+# its two moments that each rank of the dp×tp grid holds (380 / 2)
+DP_UPDATE_STEPS = 1
+A7_SHARDS = {'E_i.weight': [190] * 3,
+             'decoder.iclsNN.Dense_1.weight': [190] * 3}
+
+
+def a7_phase(vocab, batches):
+    """Phase 16: data-parallel and dp×tp training, the ChemBERTa baseline
+    and a trace (module docstring).  Returns the phase's summary and the
+    launches of its paths, the ranks' included."""
+    smi = nvidia_smi()
+    out = {}
+    t0 = time.perf_counter()
+    rdv = tempfile.mkdtemp()
+    init_distributed(f'file://{rdv}/rendezvous', 1, 0, device='cuda')
+    try:
+        # (a) NCCL at world size 1: the DP Trainer's graph epoch against
+        # the one-card Trainer's, bit for bit
+        dp_tr, _ = profile_train.canonical_trainer(
+            'cuda', vocab, mesh=pmesh.make_mesh(1))
+        one_tr, _ = profile_train.canonical_trainer('cuda', vocab)
+        reset_counts()
+        reduces = pmesh.all_reduce.calls
+        t1 = time.perf_counter()
+        if dp_tr.train_epoch(batches, log=lambda *_: None):
+            raise AssertionError('the DP epoch stopped early')
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t1
+        dp_counts = read_counts()
+        epoch_reduces = pmesh.all_reduce.calls - reduces
+        one_tr.train_epoch(batches, log=lambda *_: None)
+        dp_st, one_st = opt_states(dp_tr), opt_states(one_tr)
+        differ = [k for k in one_st
+                  if not torch.equal(bits(dp_st[k]), bits(one_st[k]))]
+        groups = profile_train.flush_groups(dp_tr, batches)
+        reduces = pmesh.all_reduce.calls
+        windows = profile_train.replay_windows(dp_tr, groups)
+        window_reduces = pmesh.all_reduce.calls - reduces
+        bad, lost = profile_train.check_replay_windows(windows,
+                                                       STEP_LAUNCHES)
+        replay_counts = {k: sum(w['launches'][k] for w in windows)
+                         for k in STEP_LAUNCHES}
+        out['nccl'] = dict(
+            steps=dp_tr.total_step - len(windows), epoch_s=epoch_s,
+            epoch_mols_per_s=profile_train.BATCH_SIZE * len(batches) /
+            epoch_s, all_reduces=epoch_reduces, differing_states=differ,
+            **dp_tr.graph_stats(), replayed_steps=len(windows),
+            all_reduces_per_replayed_step=window_reduces / len(windows),
+            launches_per_replayed_step=windows[0]['launches'],
+            ran_per_replayed_step=windows[0]['ran'],
+            windows_with_lost_records=lost,
+            replayed_step_wall_ms=[w['wall_ms'] for w in windows],
+            replayed_step_device_ms=[w['device_busy_ms'] for w in windows])
+        print('a7 dp nccl ' + json.dumps(out['nccl']), flush=True)
+        if differ:
+            raise AssertionError(f'the DP epoch differs from the one-card '
+                                 f'epoch in {differ}')
+        if epoch_reduces != len(batches) or window_reduces != len(windows):
+            raise AssertionError(f'{epoch_reduces} all-reduces in an epoch '
+                                 f'of {len(batches)} steps, '
+                                 f'{window_reduces} in {len(windows)} '
+                                 f'replayed steps')
+        if bad or dp_tr.graph_stats()['signatures'] == 0:
+            raise AssertionError(f'DP replayed steps (step, count, '
+                                 f'launches) {bad}, expected {STEP_LAUNCHES}')
+
+        # (e) a trace of one replayed DP step
+        with profiling.trace(os.path.join(rdv, 'trace')) as prof:
+            with profiling.named_scope('dp_step'):
+                dp_tr.scan_steps(next(g for g in groups if len(g) > 1)[:1])
+            torch.cuda.synchronize()
+        with open(prof.trace_path) as f:
+            events = json.load(f)['traceEvents']
+        out['trace'] = dict(events=len(events),
+                            bytes=os.path.getsize(prof.trace_path),
+                            scope=any(e.get('name') == 'dp_step'
+                                      for e in events))
+        print('a7 trace ' + json.dumps(out['trace']), flush=True)
+        if not out['trace']['scope']:
+            raise AssertionError('the trace holds no dp_step range')
+    finally:
+        torch.distributed.destroy_process_group()
+    out['nccl_s'] = time.perf_counter() - t0
+
+    # (b) 2 gloo ranks, (c) dp 2 × tp 2, all on the one card, against the
+    # golden and against one process taking the same steps on the card
+    with open(DP_GOLDEN) as f:
+        golden = json.load(f)
+    t0 = time.perf_counter()
+    emulated, emulated_digest = profile_dp.emulated_steps('cuda')
+    out['emulated'] = dict(
+        digest=emulated_digest[:16], loss=[s['Loss'] for s in emulated],
+        update_deviation=profile_train.update_deviation(emulated, golden),
+        seconds=time.perf_counter() - t0)
+    print('a7 dp emulated ' + json.dumps(out['emulated']), flush=True)
+    rank_counts = {k: 0 for k in STEP_LAUNCHES}
+    for name, world, tp, shards in (('dp2', 2, 1, None),
+                                    ('dp2xtp2', 4, 2, A7_SHARDS)):
+        t0 = time.perf_counter()
+        reports = profile_dp.run_ranks(world, tp=tp, device='cuda:0',
+                                       backend='gloo')
+        check = profile_dp.check_ranks(reports, golden, shards,
+                                       update_steps=DP_UPDATE_STEPS)
+        if tp == 1 and reports[0]['digest'] != emulated_digest:
+            check.append(f'the ranks\' parameters are not the one-process '
+                         f'steps\' ({reports[0]["digest"][:16]} against '
+                         f'{emulated_digest[:16]})')
+        for r in reports:
+            for k in rank_counts:
+                rank_counts[k] += r['launches'][k]
+        want = {k: v * len(golden['steps']) for k, v in STEP_LAUNCHES.items()}
+        out[name] = dict(
+            ranks=world, tp=tp, bad=check,
+            digests=[r['digest'][:16] for r in reports],
+            equal_to_emulated=reports[0]['digest'] == emulated_digest,
+            update_deviation=profile_train.update_deviation(
+                reports[0]['steps'], golden),
+            all_reduces=[r['all_reduces'] for r in reports],
+            all_gathers=[r['all_gathers'] for r in reports],
+            launches=[r['launches'] for r in reports],
+            shards=reports[0]['shards'], steps_s=[r['steps_s'] for r in
+                                                  reports],
+            setup_s=[r['setup_s'] for r in reports],
+            loss=[s['Loss'] for s in reports[0]['steps']],
+            seconds=time.perf_counter() - t0)
+        print(f'a7 {name} ' + json.dumps(out[name]), flush=True)
+        if check:
+            raise AssertionError(f'{name}: {check}')
+        if any(r['launches'] != want for r in reports):
+            raise AssertionError(f'{name}: launches {out[name]["launches"]}'
+                                 f', expected {want} a rank')
+
+    # (d) ChemBERTa: the golden steps, the throughput, the CLI
+    t0 = time.perf_counter()
+    with open(CHEMBERTA_GOLDEN) as f:
+        cgolden = json.load(f)
+    steps = profile_chemberta.golden_steps('cuda')
+    cbad = profile_chemberta.check_golden(steps, cgolden)
+    rates = profile_chemberta.throughput('cuda')
+    out['chemberta'] = dict(bad=cbad, loss=[s['loss'] for s in steps],
+                            golden_loss=[s['loss'] for s in cgolden['steps']],
+                            **rates)
+    print('a7 chemberta ' + json.dumps(out['chemberta']), flush=True)
+    if cbad:
+        raise AssertionError(f'ChemBERTa against the JAX golden: {cbad}')
+    rows = read_csv_data(DATA)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, part in (('train.csv', rows[:300]), ('val.csv', rows[300:])):
+            write_csv(os.path.join(tmp, name),
+                      [dict(SMILES=s, HOMO=h, LUMO=l) for s, h, l in part])
+        cfg = os.path.join(tmp, 'cfg.json')
+        with open(cfg, 'w') as f:
+            json.dump(dict(data=os.path.join(tmp, 'train.csv'),
+                           val_data=os.path.join(tmp, 'val.csv'),
+                           save_dir=os.path.join(tmp, 'out')), f)
+        t1 = time.perf_counter()
+        os.chdir(tmp)           # the best checkpoint goes to runs/
+        try:
+            model, tok = chemberta_pr2_fine_tune.main(
+                ['--path-to-config', cfg, '--epochs', '2', '--device',
+                 'cuda'])
+        finally:
+            os.chdir(cwd)
+        cli_s = time.perf_counter() - t1
+        fresh = chemberta.ChemBertaForPR2(vocab_size=tok.vocab_size)
+        _, n = chemberta.load_pretrained_backbone(
+            fresh, os.path.join(tmp, 'out'), log=lambda *_: None)
+        fresh.to('cuda').eval()
+        toks = torch.as_tensor(tok.encode_batch([r[0] for r in rows[300:]]),
+                               device='cuda')
+        with torch.no_grad():
+            same = torch.equal(model.eval()(toks), fresh(toks))
+    out['chemberta_cli'] = dict(epochs=2, train=300, val=len(rows) - 300,
+                                seconds=cli_s, leaves_reloaded=n,
+                                reload_equal=same)
+    print('a7 chemberta cli ' + json.dumps(out['chemberta_cli']), flush=True)
+    if not same or n != len(flatten(chemberta_to_flax(fresh))):
+        raise AssertionError(f'the saved ChemBERTa reloads {n} leaves, '
+                             f'predictions equal: {same}')
+    out['chemberta_s'] = time.perf_counter() - t0
+    print('a7 times ' + json.dumps(dict(
+        nvidia_smi=smi, **{k: v for k, v in out.items()
+                           if k.endswith('_s')},
+        dp2_s=out['dp2']['seconds'], dp2xtp2_s=out['dp2xtp2']['seconds'],
+        chemberta_steps_per_sec=rates['steps_per_sec'],
+        chemberta_mols_per_sec=rates['mols_per_sec'])), flush=True)
+    counts = {k: dp_counts[k] + replay_counts[k] + rank_counts[k]
+              for k in dp_counts}
+    return out, counts
+
+
 def main() -> int:
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -2366,6 +2604,11 @@ def main() -> int:
               a5counts[name] + a6counts[name] for name in counts}
     phase('a6', t0)
 
+    t0 = time.perf_counter()
+    a7_summary, a7counts = a7_phase(vocab, train_batches)
+    counts = {name: counts[name] + a7counts[name] for name in counts}
+    phase('a7', t0)
+
     keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
             'bound_by', 'floor_ms', 'host_ms')
     kernels = []
@@ -2401,7 +2644,12 @@ def main() -> int:
                     name],
                 'hier_a5': a5_summary['hier a5'][
                     'launches_per_replayed_step'][name],
-                'shards': a6_summary['launches_per_replayed_step'][name]},
+                'shards': a6_summary['launches_per_replayed_step'][name],
+                'dp_nccl': a7_summary['nccl']['launches_per_replayed_step'][
+                    name]},
+            launches_a7_ranks={
+                run: [r[name] for r in a7_summary[run]['launches']]
+                for run in ('dp2', 'dp2xtp2')},
             launches_a6={
                 'shard_epoch': a6_summary['shard_epoch']['launches'][name],
                 'quality_run': a6_summary['quality']['launches'][name]},

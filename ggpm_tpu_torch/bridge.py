@@ -20,6 +20,11 @@ their trees, a model with attention heads by its ``A_mem``, a GRU model by
 the ``W_z`` of its cells (``rnn_type``) and untied embeddings by the
 encoder's own ``E_c_mod`` (``tie_embedding``).  A
 ``prop-opt-sched`` tree is a prop-opt one, and loads as ``PropOptVAE``.
+``flax_paths`` names each parameter's leaf in that layout
+(``parallel.mesh.split_params`` applies JAX's partition rule to it).
+``chemberta_from_flax`` / ``chemberta_to_flax`` carry the ChemBERTa
+baseline's flax tree, whose attention kernels are [H, heads, head_dim]
+and [heads, head_dim, H], to and from ``models.chemberta.ChemBertaForPR2``.
 """
 
 from __future__ import annotations
@@ -291,6 +296,28 @@ def to_flax_tree(model: torch.nn.Module,
     return {'params': _sorted(root)}
 
 
+def flax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, bool]]:
+    """Each parameter of ``model`` by name: its leaf's path in
+    ``to_flax_tree``'s layout below ``params/``, and whether the leaf is
+    the parameter transposed (a ``Linear`` kernel)."""
+    out = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.Linear):
+            leaves = {'weight': ('kernel', True), 'bias': ('bias', False)}
+        elif isinstance(mod, torch.nn.Embedding):
+            leaves = {'weight': ('embedding', False)}
+        else:
+            leaves = {k: (k, False)
+                      for k, _ in mod.named_parameters(recurse=False)}
+        for attr, (leaf, transposed) in leaves.items():
+            if getattr(mod, attr, None) is None:
+                continue
+            full = f'{name}.{attr}' if name else attr
+            out.setdefault(full, ('/'.join(filter(None, name.split('.'))) +
+                                  ('/' if name else '') + leaf, transposed))
+    return out
+
+
 def _sorted(tree: Dict[str, Any]) -> Dict[str, Any]:
     """``tree`` with the keys of every level in sorted order, as flax lays
     out a param tree (so a checkpoint's bytes are the JAX package's)."""
@@ -388,3 +415,95 @@ def load_model(ckpt_path: str, vocab_path: str, device: str = 'cuda',
         **(HIER_TRAINED if hier else {})))
     load_flax_params(model, tree)
     return model.eval().to(device), vocab
+
+
+# -- the ChemBERTa baseline ---------------------------------------------------
+
+def _chemberta_leaves(model) -> list:
+    """``(flax path, parameter, layout)`` of every leaf of a
+    ``ChemBertaForPR2``: layout 'plain' (the same array), 'kernel' (a
+    ``Dense`` kernel, transposed), 'heads_in' (an attention q/k/v kernel
+    [H, heads, head_dim] or its bias [heads, head_dim]) or 'heads_out'
+    (the attention's out kernel [heads, head_dim, H])."""
+    def dense(path, lin):
+        return [(path + ('kernel',), lin.weight, 'kernel'),
+                (path + ('bias',), lin.bias, 'plain')]
+
+    def norm(path, ln):
+        return [(path + ('scale',), ln.weight, 'plain'),
+                (path + ('bias',), ln.bias, 'plain')]
+
+    out = [(('Embed_0', 'embedding'), model.tok_embed.weight, 'plain'),
+           (('Embed_1', 'embedding'), model.pos_embed.weight, 'plain')]
+    for i, layer in enumerate(model.layers):
+        base = (f'TransformerEncoderLayer_{i}',)
+        att = base + ('MultiHeadDotProductAttention_0',)
+        out += norm(base + ('LayerNorm_0',), layer.ln0)
+        for name in ('query', 'key', 'value'):
+            lin = getattr(layer.attn, name)
+            out += [(att + (name, 'kernel'), lin.weight, 'heads_in'),
+                    (att + (name, 'bias'), lin.bias, 'heads_in')]
+        out += [(att + ('out', 'kernel'), layer.attn.out.weight, 'heads_out'),
+                (att + ('out', 'bias'), layer.attn.out.bias, 'plain')]
+        out += norm(base + ('LayerNorm_1',), layer.ln1)
+        out += dense(base + ('Dense_0',), layer.mlp0)
+        out += dense(base + ('Dense_1',), layer.mlp1)
+    out += norm(('LayerNorm_0',), model.ln)
+    dense_layers = [model.pooler, *model.head, model.out]
+    for j, lin in enumerate(dense_layers):
+        out += dense((f'Dense_{j}',), lin)
+    return [(('params',) + path, p, layout) for path, p, layout in out]
+
+
+def chemberta_to_flax(model, value: Callable[[torch.nn.Parameter],
+                                              torch.Tensor] = lambda p: p
+                      ) -> Dict[str, Any]:
+    """A ``ChemBertaForPR2``'s params (or what ``value`` picks for each,
+    as ``lambda p: p.grad``) as the JAX package's flax tree
+    (``{'params': ...}`` of numpy arrays, keys sorted)."""
+    heads = model.layers[0].attn.heads if len(model.layers) else 1
+    root: Dict[str, Any] = {}
+    for path, p, layout in _chemberta_leaves(model):
+        t = value(p).detach().cpu()
+        if layout == 'kernel':
+            t = t.t()
+        elif layout == 'heads_in':
+            # Linear [heads·head_dim, H] -> [H, heads, head_dim];
+            # bias [heads·head_dim] -> [heads, head_dim]
+            t = (t.t().reshape(t.shape[1], heads, -1) if t.dim() == 2
+                 else t.reshape(heads, -1))
+        elif layout == 'heads_out':
+            # Linear [H, heads·head_dim] -> [heads, head_dim, H]
+            t = t.t().reshape(heads, -1, t.shape[0])
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(t.numpy()).copy()
+    return _sorted(root)
+
+
+@torch.no_grad()
+def chemberta_from_flax(model, tree: Mapping) -> None:
+    """Copy a flax ChemBERTa tree (the JAX package's init, checkpoint or
+    ``chemberta_to_flax`` output) into ``model``'s parameters in place;
+    every leaf must be there with its shape."""
+    tree = tree if 'params' in tree else {'params': tree}
+    for path, p, layout in _chemberta_leaves(model):
+        node = tree
+        for k in path:
+            if k not in node:
+                raise ValueError(f'flax ChemBERTa tree has no '
+                                 f'{"/".join(path)}')
+            node = node[k]
+        t = torch.from_numpy(np.array(node))
+        if layout == 'kernel':
+            t = t.t()
+        elif layout == 'heads_in':
+            t = t.reshape(t.shape[0], -1).t() if t.dim() == 3 \
+                else t.reshape(-1)
+        elif layout == 'heads_out':
+            t = t.reshape(-1, t.shape[-1]).t()
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f'{"/".join(path)}: shape {tuple(t.shape)}, '
+                             f'the model\'s {tuple(p.shape)}')
+        p.copy_(t)

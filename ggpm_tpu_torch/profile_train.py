@@ -164,14 +164,15 @@ def hopv_batches(n: Optional[int] = None, vocab: Optional[PairVocab] = None
                    for i in range(n)]
 
 
-def canonical_trainer(device: str, vocab: Optional[PairVocab] = None
-                      ) -> Tuple[Trainer, PairVocab]:
+def canonical_trainer(device: str, vocab: Optional[PairVocab] = None,
+                      mesh=None) -> Tuple[Trainer, PairVocab]:
     """A ``Trainer`` of the canonical configuration on ``device``, from the
-    checkpoint's ``vae/`` weights, without latent noise."""
+    checkpoint's ``vae/`` weights, without latent noise; with ``mesh`` one
+    rank of a data-parallel (or dp×tp) run on it."""
     model, vocab = load_prop_model(CKPT, VOCAB, device=device)
     trainer = Trainer(model, make_optimizer(**OPTIMIZER), vocab.mask,
                       beta=BETA, print_iter=10 ** 9, perturb_z=False,
-                      device=device)
+                      device=device, mesh=mesh)
     return trainer, vocab
 
 

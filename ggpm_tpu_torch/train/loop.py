@@ -1,8 +1,7 @@
 """Training loop: train step, scanned steps, metric accumulation,
 checkpoints (counterpart of ``ggpm_tpu/train/loop.py``: ``Trainer`` with
-``train_step``, ``scan_steps``, ``train_epoch``, ``evaluate``,
-``MetricAccumulator``; ``dp_step`` and meshes, ROADMAP A7, are not
-ported).
+``train_step``, ``scan_steps``, ``dp_step``, ``train_epoch``,
+``evaluate``, ``MetricAccumulator``).
 
 Reference driver semantics: reference vae_train.py:60-111 (Adam +
 exponential decay + grad-clip 20, print every ``print_iter``, checkpoint per
@@ -12,10 +11,20 @@ reads them.  Where the JAX package runs K same-shape steps as one
 one captured CUDA graph per step (``StepGraph``: forward, backward and the
 optimizer's update), captured once per device-batch signature; on the CPU
 ``scan_steps`` runs K eager steps, the plain version.
+
+On a ``parallel.mesh.Mesh`` the ``Trainer`` is one rank of a
+data-parallel (or dp×tp) run: its step is the same, with the gradient,
+metrics and breaker flag reduced over the ranks by one all-reduce between
+the backward pass and the update (``parallel.mesh.reduce_step``).  Under
+NCCL that all-reduce is captured inside the step's CUDA graph and each
+replay runs it; under gloo, and on a dp×tp mesh, whose step gathers its
+split leaves into storage it releases after the update, the step runs
+eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import time
 from collections.abc import Mapping
@@ -29,6 +38,7 @@ from ..bridge import to_flax_tree
 from ..data.batching import (compact_plan_dict, hier_train_tables,
                              to_model_batch, train_tables)
 from ..ops import add_replay, capture_record, captured_counts
+from ..parallel import mesh as pmesh
 from . import checkpoint as ckpt
 from .optim import Adam, MultiAdam
 
@@ -144,6 +154,7 @@ class StepGraph:
         self.inputs = _static_copy(batch, trainer._mask_dev)
         self.eps, self.clip_eps = trainer._noise(batch, static=True)
         before = captured_counts()
+        reduces = pmesh.all_reduce.captured
         mem0 = torch.cuda.memory_reserved(stream.device)
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
@@ -167,6 +178,7 @@ class StepGraph:
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(stream.device) - mem0
         self.launches, self.launches_bf16 = capture_record(before)
+        self.all_reduces = pmesh.all_reduce.captured - reduces
 
     def run(self, trainer: 'Trainer', batch: Dict[str, Any]
             ) -> torch.Tensor:
@@ -181,6 +193,7 @@ class StepGraph:
         trainer._noise(batch, out=(self.eps, self.clip_eps))
         self.graph.replay()
         add_replay(self.launches, self.launches_bf16)
+        pmesh.all_reduce.calls += self.all_reduces
         return self.out.clone()
 
 
@@ -203,7 +216,16 @@ class Trainer:
     and the noise (``eps``, and ``clip_eps`` for a model that takes it) is
     drawn from ``gen`` before the model runs.  So the same step can be
     captured once and replayed (``scan_steps``); ``graphs`` keeps the
-    captures, one per device-batch signature."""
+    captures, one per device-batch signature.
+
+    With ``mesh`` (``parallel.mesh.Mesh``) the trainer is one rank of a
+    data-parallel run (JAX's ``Trainer(mesh=...)``): each step takes a
+    group of ``n_shards`` same-signature batches (``mesh.dp``, divided by
+    ``mesh.n_proc`` where each process reads its own input) and computes
+    on its own one of them, ``gen`` is seeded from (seed, data index), the
+    parameters start from rank 0's, and on a dp×tp mesh the optimizer
+    holds this rank's rows of the split leaves
+    (``parallel.mesh.ShardedAdamState``, split at ``tp_min_dim``)."""
 
     def __init__(self, model, optimizer: Union[Adam, MultiAdam],
                  vocab_mask: np.ndarray,
@@ -211,12 +233,34 @@ class Trainer:
                  save_dir: Optional[str] = None, save_iter: int = -1,
                  clip_break_count: int = 5, seed: int = 1,
                  beta_warmup_steps: int = 0, perturb_z: bool = True,
-                 device: str = 'cuda'):
+                 device: str = 'cuda', mesh: Optional[pmesh.Mesh] = None,
+                 tp_min_dim: int = 256):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.is_hier = getattr(model, 'is_hier', False)
         self.optimizer = optimizer
-        self.opt_state = optimizer.attach(dict(self.model.named_parameters()))
+        self.mesh = mesh
+        self.tp_min_dim = tp_min_dim
+        self.n_shards = 1
+        if mesh is not None:
+            if mesh.n_proc > 1 and mesh.tp > 1:
+                raise ValueError('several processes with their own inputs '
+                                 'and TP are not supported (a 1-D data '
+                                 'mesh only), as in the JAX package')
+            if mesh.dp % mesh.n_proc:
+                raise ValueError(f'{mesh.dp} data ranks over {mesh.n_proc} '
+                                 f'processes')
+            if not isinstance(optimizer, Adam):
+                raise ValueError('data-parallel training takes one Adam '
+                                 '(make_optimizer), as vae_train builds')
+            self.n_shards = mesh.dp // mesh.n_proc
+            pmesh.broadcast_params(list(self.model.parameters()))
+        if mesh is not None and mesh.tp > 1:
+            self.opt_state = pmesh.ShardedAdamState(optimizer, self.model,
+                                                    mesh, tp_min_dim)
+        else:
+            self.opt_state = optimizer.attach(
+                dict(self.model.named_parameters()))
         self.vocab_mask = np.asarray(vocab_mask)
         self._mask_dev = torch.as_tensor(self.vocab_mask, device=self.device)
         self.beta = beta
@@ -224,7 +268,8 @@ class Trainer:
         self.save_dir = save_dir
         self.save_iter = save_iter
         self.clip_break_count = clip_break_count
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.gen = torch.Generator(device=self.device).manual_seed(
+            pmesh.step_seed(seed, None if mesh is None else mesh.data_index))
         self.beta_warmup_steps = beta_warmup_steps
         self.perturb_z = perturb_z
         self.total_step = 0
@@ -309,14 +354,21 @@ class Trainer:
         self.model.train()
         for p in self.opt_state.params:
             p.grad = None
+        if isinstance(self.opt_state, pmesh.ShardedAdamState):
+            self.opt_state.gather()
         extra = {} if clip_eps is None else {'clip_eps': clip_eps}
         loss, metrics, aux = self.model(
             batch, self._beta_t() if beta is None else beta, eps=eps,
             perturb_z=self.perturb_z, generator=self.gen, **extra)
         loss.backward()
-        gnorm = self.opt_state.update()
-        self._step_dev += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.mesh is None:
+            gnorm = self.opt_state.update()
+        else:
+            g, metrics, aux = pmesh.reduce_step(self.mesh, self.opt_state,
+                                                metrics, aux)
+            gnorm = self.opt_state.update(g)
+        self._step_dev += 1
         return dict(metrics, GNorm=gnorm), aux
 
     def _advance(self) -> None:
@@ -387,12 +439,16 @@ class Trainer:
         capture follows.  A capture or replay that fails raises; nothing
         falls back to eager steps.  Without it, K ``train_step``s."""
         if graph is None:
-            graph = self.device.type == 'cuda'
+            graph = self.graphs_by_default()
         if not graph:
             return self._unpack(torch.stack(
                 [self._row(*self.train_step(db)) for db in batches]))
         if self.device.type != 'cuda':
             raise ValueError('a CUDA graph needs a CUDA device')
+        if self.mesh is not None and not self.graphs_by_default():
+            raise ValueError('a step on this mesh runs eagerly: its '
+                             'collectives are gloo\'s, or it gathers split '
+                             'leaves (dp×tp)')
         self._sync_step()
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
@@ -408,6 +464,40 @@ class Trainer:
                 rows.append(g.run(self, db))
                 self._advance()
         return self._unpack(torch.stack(rows))
+
+    def graphs_by_default(self) -> bool:
+        """Whether ``scan_steps`` replays CUDA graphs by default: on the
+        card, outside a mesh or on a 1-D mesh whose collectives are
+        NCCL's."""
+        if self.device.type != 'cuda':
+            return False
+        return self.mesh is None or (
+            self.mesh.tp == 1 and torch.distributed.get_backend() == 'nccl')
+
+    def dp_step(self, db_list: Sequence, graph: Optional[bool] = None):
+        """ONE data-parallel optimizer step over a group of up to
+        ``n_shards`` same-signature batches (``MolGraphBatch`` objects or
+        model-batch dicts; a short group is filled by cycling): this rank
+        steps on its own one, with the gradient, metrics and flag reduced
+        over the ranks.  Returns (metrics, aux) of [1] rows, as
+        ``scan_steps`` (``graph`` as it takes it)."""
+        if self.mesh is None:
+            raise ValueError('Trainer built without a mesh')
+        if len(db_list) > self.n_shards:
+            raise ValueError(f'a group of {len(db_list)} batches, a step '
+                             f'takes {self.n_shards}')
+        mine = pmesh.stack_batches(pmesh.dp_groups(db_list, self.n_shards)[0],
+                                   self.mesh, self.n_shards)
+        return self.scan_steps([self.device_batch(self.host_batch(mine))],
+                               graph=graph)
+
+    def gathered(self):
+        """A context in which the model's parameters are whole: on a dp×tp
+        mesh its split leaves are gathered (a collective every rank must
+        enter) and released after; elsewhere nothing to do."""
+        if isinstance(self.opt_state, pmesh.ShardedAdamState):
+            return self.opt_state.whole()
+        return contextlib.nullcontext()
 
     def _warm_up(self, batch: Dict[str, Any]) -> torch.Tensor:
         """The eager step of a signature's first batch, on the capture's
@@ -438,10 +528,13 @@ class Trainer:
         were opened (``graph`` as ``scan_steps`` takes it).  This is the
         order in which the JAX ``Trainer`` takes its steps
         (loop.py:474-484), so both follow the same parameter trajectory.
-        Returns True when the negative-loss circuit breaker stops the run:
-        its flags stay on the device, and
-        are counted at each print boundary and at the epoch's end, where
-        ``clip_break_count`` of them in the run stop it."""
+        On a mesh a flush is split into groups of ``n_shards``, the short
+        last one filled by cycling (loop.py:406-425), and each group is one
+        step on this rank's batch of it; only those batches go to the
+        device.  Returns True when the negative-loss circuit breaker stops
+        the run: its flags stay on the device, and are counted at each
+        print boundary and at the epoch's end, where ``clip_break_count``
+        of them in the run stop it."""
         acc = MetricAccumulator()
         t0 = time.time()
         mols0 = self.mols_seen
@@ -451,13 +544,23 @@ class Trainer:
         if self.save_iter > 0:
             next_save = (self.total_step // self.save_iter + 1) * self.save_iter
 
-        def run(db_list):
+        def run(flush):
+            if self.mesh is None:
+                hosts = [host for host, _ in flush]
+                db_list = [db for _, db in flush]
+            else:
+                # groups of n_shards (the last cycled): this rank's batch
+                # of each, on the device
+                groups = pmesh.dp_groups([host for host, _ in flush],
+                                         self.n_shards)
+                hosts = [host for group in groups for host in group]
+                db_list = [self.device_batch(pmesh.stack_batches(
+                    group, self.mesh, self.n_shards)) for group in groups]
             if len(db_list) == 1:
                 metrics, aux = self.train_step(db_list[0])
             else:
                 metrics, aux = self.scan_steps(db_list, graph=graph)
-            for db in db_list:
-                self.mols_seen += len(db['plan']['root_clab'])
+            self.mols_seen += sum(len(h['plan']['root_clab']) for h in hosts)
             acc.add(metrics)
             clipped_flags.append(aux.get('clipped', False))
         def boundary() -> bool:
@@ -481,18 +584,22 @@ class Trainer:
                 n_iter = self.total_step // self.save_iter - 1
                 next_save = (self.total_step // self.save_iter + 1) \
                     * self.save_iter
-                if self.save_dir:
-                    ckpt.save_params(to_flax_tree(self.model),
-                                     f'{self.save_dir}/model.{n_iter}')
+                with self.gathered():
+                    if self.save_dir:
+                        ckpt.save_params(to_flax_tree(self.model),
+                                         f'{self.save_dir}/model.{n_iter}')
             return False
 
         def arrivals():
+            # on a mesh only this rank's batches go to the device (run)
             for mb in data:
                 host = self.host_batch(mb)
-                yield signature(host), self.device_batch(host)
+                yield host, (None if self.mesh is not None
+                             else self.device_batch(host))
 
-        for group in flushes(arrivals(), lambda x: x[0], scan_chunk):
-            run([db for _, db in group])
+        for flush in flushes(arrivals(), lambda x: signature(x[0]),
+                             scan_chunk):
+            run(flush)
             if boundary():
                 return True
         self.n_clipped += count_clipped(clipped_flags)
@@ -501,11 +608,15 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, data: Iterable) -> Dict[str, float]:
         """Mean metrics over ``data`` without noise or dropout (the JAX
-        ``make_eval_step``)."""
+        ``make_eval_step``), on this rank's device alone (on a dp×tp mesh
+        every rank of the model group must call it: the split leaves are
+        gathered)."""
         acc = MetricAccumulator()
         self.model.eval()
-        for mb in data:
-            _, metrics, _ = self.model(self.device_batch(self.host_batch(mb)),
-                                       self.beta, perturb_z=False)
-            acc.add(metrics)
+        with self.gathered():
+            for mb in data:
+                _, metrics, _ = self.model(
+                    self.device_batch(self.host_batch(mb)), self.beta,
+                    perturb_z=False)
+                acc.add(metrics)
         return acc.mean()

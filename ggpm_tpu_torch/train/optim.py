@@ -6,7 +6,10 @@ the JAX package's optax chain computes it, and the per-subnetwork optimizer
 The chain is ``clip_by_global_norm(clip_norm)``, ``scale_by_adam()`` (b1
 0.9, b2 0.999, eps 1e-8, eps_root 0) and ``scale_by_learning_rate(lr ·
 anneal_rate ^ (count // steps_per_epoch))``, where ``count`` is the number
-of updates made before this one, as optax counts.  optax clips by
+of updates made before this one, as optax counts; with ``staircase``
+False the exponent is ``count / steps_per_epoch`` (``optax.
+exponential_decay``'s continuous decay, which the ChemBERTa baseline
+trains with).  optax clips by
 ``g / ‖g‖ · clip_norm`` when ``‖g‖ >= clip_norm`` (``clip_grad_norm_``
 divides by ``‖g‖ + 1e-6`` instead).
 
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -38,13 +41,26 @@ class Adam:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    staircase: bool = True
 
     def schedule(self, count: int) -> float:
         """The learning rate of the update after ``count`` updates, in
         float32 as optax computes it."""
+        if not self.staircase:
+            return float(self._continuous(torch.tensor(count)))
         epoch = count // max(self.steps_per_epoch, 1)
         rate = torch.tensor(self.anneal_rate, dtype=torch.float32) ** epoch
         return float(self.lr * rate)
+
+    def _continuous(self, count: torch.Tensor) -> torch.Tensor:
+        """``optax.exponential_decay(lr, steps_per_epoch, anneal_rate)``
+        (not staircase) at ``count``: ``lr · anneal_rate ^ (count /
+        steps_per_epoch)`` in float32, ``lr`` at count 0."""
+        p = count.float() / max(self.steps_per_epoch, 1)
+        rate = torch.pow(torch.tensor(self.anneal_rate, dtype=torch.float32,
+                                      device=count.device), p)
+        return torch.where(count <= 0, torch.full_like(rate, self.lr),
+                           rate * self.lr)
 
     def attach(self, params: Union[Sequence[torch.nn.Parameter],
                                    Mapping]) -> 'AdamState':
@@ -106,6 +122,8 @@ class AdamState:
     def schedule_t(self, count: torch.Tensor) -> torch.Tensor:
         """``opt.schedule(count)`` for a device count: the same float32
         scalar, on the device."""
+        if not self.opt.staircase:
+            return self.opt._continuous(count)
         epoch = torch.div(count, max(self.opt.steps_per_epoch, 1),
                           rounding_mode='floor')
         return self._pow('anneal_rate', epoch) * self.opt.lr
@@ -123,16 +141,19 @@ class AdamState:
             for p in self.params])
 
     @torch.no_grad()
-    def update(self) -> torch.Tensor:
-        """One update from the parameters' ``.grad`` and the device count,
-        which it advances, with no host sync and no host value; returns
-        the gradients' global norm (before clipping) as a device scalar.
+    def update(self, g: Optional[torch.Tensor] = None,
+               gnorm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One update from the parameters' ``.grad`` (or the flat
+        gradient ``g``, laid out as ``flat``) and the device count, which
+        it advances, with no host sync and no host value; returns the
+        gradients' global norm (before clipping) as a device scalar, or
+        clips by ``gnorm`` where the caller gives the norm of a gradient
+        of which ``g`` is a part (``parallel.mesh.ShardedAdamState``).
         The host's ``count`` is left to ``advance``."""
         o = self.opt
-        g = self.flat_grad()
-        # summed in float64: a float32 sum over ~2M entries on the CPU is
-        # off by 2e-4 relative; optax's per-leaf sums are not
-        gnorm = torch.linalg.vector_norm(g, dtype=torch.float64).float()
+        g = self.flat_grad() if g is None else g
+        if gnorm is None:
+            gnorm = global_norm(g)
         # optax: select(‖g‖ < max, g, g / ‖g‖ · max), without a host sync
         keep = gnorm < o.clip_norm
         g = g / torch.where(keep, torch.ones_like(gnorm), gnorm) * \
@@ -157,13 +178,22 @@ class AdamState:
         return gnorm
 
 
+def global_norm(g: torch.Tensor) -> torch.Tensor:
+    """The norm of a flat gradient as a float32 device scalar, summed in
+    float64: a float32 sum over ~2M entries on the CPU is off by 2e-4
+    relative; optax's per-leaf sums are not."""
+    return torch.linalg.vector_norm(g, dtype=torch.float64).float()
+
+
 def make_optimizer(lr: float = 1e-3, clip_norm: float = 20.0,
                    anneal_rate: float = 0.9,
-                   steps_per_epoch: int = 1000) -> Adam:
+                   steps_per_epoch: int = 1000,
+                   staircase: bool = True) -> Adam:
     """Adam + exponential decay + global-norm clip (JAX
-    ``make_optimizer``)."""
+    ``make_optimizer``; with ``staircase`` False the chain of the JAX
+    ``train_chemberta``)."""
     return Adam(lr=lr, clip_norm=clip_norm, anneal_rate=anneal_rate,
-                steps_per_epoch=steps_per_epoch)
+                steps_per_epoch=steps_per_epoch, staircase=staircase)
 
 
 def default_group_fn(path: str) -> str:

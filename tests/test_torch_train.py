@@ -728,9 +728,10 @@ def test_vae_train_cli_one_epoch(data, tmp_path):
         model)), str(path))
     for k, v in flatten(jax.tree.map(np.asarray, jparams)).items():
         assert np.isfinite(v).all(), k
-    for bad in (['--n-devices', '2'], ['--tp', '2']):
-        with pytest.raises(NotImplementedError, match='A7'):
-            vae_train.main(args + bad)
+    # --n-devices 2 trains in two ranks (tests/test_torch_parallel.py);
+    # --tp needs several devices
+    with pytest.raises(ValueError, match='several devices'):
+        vae_train.main(args + ['--tp', '2'])
     # without --data-csv it reads the config's shards, and this config
     # names none
     with pytest.raises(ValueError, match='no training data'):
