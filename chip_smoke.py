@@ -31,7 +31,12 @@ script exits non-zero:
              and timed; ``plan`` is the launch the wrapper chose.  Then
              the depth loop's row gather (``gather_rows``) at the 64
              molecules' ``bgraph`` and width 750, held bit for bit to the
-             plain copy and timed alike (``kernel_bench.gather_case``).
+             plain copy and timed alike (``kernel_bench.gather_case``),
+             and at every edge case of the card tests
+             (``kernel_bench.GATHER_EDGES``: each path of the kernel,
+             every base offset, one entry, several waves), each bit for
+             bit the plain copy with one launch by the wrapper and by the
+             kernel's own device count (``kernel gather_rows edges``).
 5. serve   — ``GgpmServer`` on a free port answers ``/health``, ``/encode``
              and ``/properties`` for the 64 molecules; checks the latents,
              the kernel launch counts (each request: 2 ``nei_sum``, one
@@ -444,6 +449,7 @@ from ggpm_tpu_torch.models import api, chemberta
 from ggpm_tpu_torch.models.api import encode
 from ggpm_tpu_torch.models import decode
 from ggpm_tpu_torch.models.decode import decode_best
+from ggpm_tpu_torch import ops
 from ggpm_tpu_torch.ops import cuda_build, graph_ops, nei_sum
 from ggpm_tpu_torch.ops.nei_sum import KINDS, device_plan, launch
 from ggpm_tpu_torch.latent.control import LatentOptimizer
@@ -676,7 +682,34 @@ def check_kernels(tree, decode_trees):
             [kernel_bench.gather_case('depth-gather-serve', tree, gen)],
             floor)):
         report.setdefault(row['kernel'], {})[row['case']] = row
+    print('kernel gather_rows edges ' + json.dumps(check_gather_edges()),
+          flush=True)
     return report
+
+
+def check_gather_edges():
+    """``gather_rows`` at every edge case of ``kernel_bench.GATHER_EDGES``
+    (the card tests'): each bit for bit the plain copy, with the wrapper's
+    launches and the kernel's own device count each up by one.  Returns
+    the cases, the plans' paths and the seconds."""
+    t0 = time.perf_counter()
+    kinds = {}
+    for case in kernel_bench.GATHER_EDGES:
+        src, graph = kernel_bench.gather_edge_inputs(*case, device='cuda')
+        before = (ops.gather_rows.launches,
+                  ops.device_launches()['gather_rows'])
+        out = ops.gather_rows(src, graph)
+        after = (ops.gather_rows.launches,
+                 ops.device_launches()['gather_rows'])
+        if not (torch.equal(out, src[graph.long()]) and
+                after == tuple(b + 1 for b in before)):
+            raise AssertionError(f'gather_rows edge {case}: launches '
+                                 f'{before} -> {after}, equal '
+                                 f'{torch.equal(out, src[graph.long()])}')
+        kind = kernel_bench.gather_plan(src, graph)['kind']
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return dict(cases=len(kernel_bench.GATHER_EDGES), kinds=kinds,
+                seconds=time.perf_counter() - t0)
 
 
 def checked(rows):

@@ -7,6 +7,7 @@ loop's, are measured by ``chip_smoke.py``).
     python -m ggpm_tpu_torch.kernel_bench [--out PATH]
     python -m ggpm_tpu_torch.kernel_bench --transpose [--sweep] [--out PATH]
     python -m ggpm_tpu_torch.kernel_bench --hier [--out PATH]
+    python -m ggpm_tpu_torch.kernel_bench --gather [--sweep] [--out PATH]
 
 ``nei_sum`` cases: the two readouts of a 64-molecule HOPV request, that
 tree tiled 64 times into one block-diagonal batch (a 4,096-molecule
@@ -41,25 +42,37 @@ each line as ``measure`` gives it, with whether the output equals the
 in-order sum bit for bit.  ``--sweep`` adds the device ms of every forced
 launch plan (``sweep_transpose``).
 
+``--gather`` times ``gather_rows`` (K3) at each of its call sites
+(``gather_cases``): the ``prop`` step's and the serve encode's depth loops,
+the GRU's and the bf16 encoders' (``a5_cases``), the hier encoder's atom
+and tree levels and the hier training step's atom depth loop and scan
+message update; each line as ``measure`` gives it, with the plan the
+wrapper launches (``gather_plan``).  ``--sweep`` adds the device ms of
+every forced path, chunks a thread and threads a block (``sweep_gather``).
+
 Without ``--sweep`` it calls only ``ops.nei_sum.nei_sum`` /
-``transpose_sum``, the plain ``ops.graph_ops`` versions and the data
-modules, so a copy of this file put into an earlier checkout of the port
-(one that has ``profile_train.hopv_batches`` and ``train.loop.to_device``
-for ``--transpose``) times that checkout's kernel at the same cases: run
-the two in turns in one chip call to compare a redesign with its parent.
-Needs a CUDA device; it has no CPU mode.
+``transpose_sum``, ``ops.gather_rows.gather_rows``, the plain
+``ops.graph_ops`` versions, the data modules and the models, so a copy of
+this file put into an earlier checkout of the port (one that has
+``profile_train.hopv_batches`` and ``train.loop.to_device`` for
+``--transpose``, and the hier family and ``data.batching.
+hier_train_tables`` for ``--gather``) times that checkout's kernel at the
+same cases: run the two in turns in one chip call to compare a redesign
+with its parent.  Needs a CUDA device; it has no CPU mode.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import importlib
 import inspect
 import json
 import os
 import subprocess
 import sys
-from typing import Callable, Iterator, List, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -362,7 +375,45 @@ def gather_rows_case(name: str, src: torch.Tensor, g: torch.Tensor) -> dict:
                 library=lambda: library_gather(src, g),
                 bytes=src.element_size() * (torch.unique(g).numel() +
                                             g.numel()) * src.shape[1] +
-                4 * g.numel(), ops=0)
+                4 * g.numel(), ops=0, args=(src, g))
+
+
+# K3's edge cases (the card tests' and chip_smoke.py's kernel phase):
+# (dtype, width, bytes of src's base past a 16-byte boundary, N, A).  Each
+# row width that the kernel's paths treat apart, at every offset its
+# element size allows, over 1,001 table entries (no multiple of a block's
+# chunks); at offset 0, one entry and 48,000 (several waves of blocks).
+GATHER_EDGE_WIDTHS = {'bfloat16': (750, 500, 251, 1),
+                      'float32': (750, 500, 250, 251)}
+GATHER_EDGE_ROWS = 900          # rows of src
+GATHER_EDGES = tuple(
+    [(d, w, off, 143, 7) for d, ws in GATHER_EDGE_WIDTHS.items()
+     for w in ws for off in range(0, 16, 2 if d == 'bfloat16' else 4)] +
+    [(d, w, 0, n, a) for d, ws in GATHER_EDGE_WIDTHS.items() for w in ws
+     for n, a in ((1, 1), (8000, 6))])
+
+
+def gather_edge_inputs(dtype: str, width: int, offset: int, n: int, a: int,
+                       device, seed: int = 2
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An edge case's ``(src, graph)``: src [GATHER_EDGE_ROWS, width] of
+    ``dtype``, every entry non-zero, a contiguous view ``offset`` bytes
+    into a larger buffer that it ends; graph int32 [n, a] over its rows,
+    reading row 0 (the first entry of every third table row) and the last
+    row (the last entry)."""
+    dt = getattr(torch, dtype)
+    elem = torch.empty((), dtype=dt).element_size()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    m = GATHER_EDGE_ROWS
+    base = (torch.rand(offset // elem + m * width, generator=gen,
+                       device=device) + 1).to(dt)
+    src = base[offset // elem:].view(m, width)
+    graph = torch.randint(0, m, (n, a), generator=gen, device=device,
+                          dtype=torch.int32)
+    if n:
+        graph[::3, 0] = 0
+        graph[-1, -1] = m - 1
+    return src, graph
 
 
 # the hier family's call sites, in the order the port calls them (an
@@ -831,6 +882,93 @@ def hier_train_cases(batch: dict, gen: torch.Generator, hidden: int = 250,
     return cases + bwd
 
 
+def hier_train_batch(device) -> dict:
+    """The first HOPV batch of 20 in the hier vocab as a hier ``Trainer``'s
+    ``device_batch`` makes it (unpacked plan, ``hier_train_tables``), on
+    ``device``; no model is loaded."""
+    from .data.batching import hier_train_tables
+    from .profile_serve import HIER_VOCAB
+    from .profile_train import hopv_batches
+    from .train.loop import to_device
+    vocab, batches = hopv_batches(1, load_vocab_file(HIER_VOCAB))
+    mb = to_model_batch(batches[0], vocab.mask, pad=False)
+    return to_device(hier_train_tables(mb), device)
+
+
+def hier_serve(device) -> tuple:
+    """The trained ``hier-prop`` checkpoint's model on ``device``, its
+    vocab, and the first ``N_MOLS`` in-vocab HOPV molecules."""
+    from .bridge import load_model
+    from .profile_serve import HIER_CKPT, HIER_VOCAB
+    model, vocab = load_model(HIER_CKPT, HIER_VOCAB, device=device)
+    rows = prune_to_vocab(read_csv_data(DATA), vocab, verbose=False)[:N_MOLS]
+    return model, vocab, rows
+
+
+def gather_cases(device) -> List[dict]:
+    """K3 (``gather_rows``) at each of its call sites, as cases of
+    ``measure``, on the index tables the sites' case functions give: the
+    ``prop`` training step's depth loop (``train_cases``), the serve
+    encode's (``gather_case`` on the serve tree), the GRU's and the bf16
+    encoders' (``a5_cases``), the hier encoder's atom and tree levels
+    (``hier_cases``) and the hier training step's atom depth loop and scan
+    message update (``hier_train_cases``).  Values from a seeded
+    generator."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    batch = train_batch(device)
+    cases = train_cases(batch, gen) + [
+        gather_case('depth-gather-serve', serve_tree(), gen)]
+    cases += a5_cases(batch, gen) + hier_cases(*hier_serve(device))
+    cases += hier_train_cases(hier_train_batch(device), gen)
+    return [c for c in cases if c['kernel'] == 'gather_rows']
+
+
+def gather_plan(src: torch.Tensor, g: torch.Tensor) -> Optional[dict]:
+    """The plan ``gather_rows`` launches on (src, g), or None where this
+    checkout's wrapper has no ``device_plan`` (a parent's, timed in
+    turns)."""
+    k3 = importlib.import_module(f'{__package__}.ops.gather_rows')
+    if not hasattr(k3, 'device_plan'):
+        return None
+    out = torch.empty((*g.shape, src.shape[1]), dtype=src.dtype,
+                      device=src.device)
+    return dataclasses.asdict(k3.device_plan(src, g, out))
+
+
+def sweep_gather(case: dict) -> dict:
+    """Device ms of the row gather at ``case`` under each forced path,
+    chunks a thread and threads a block that the kernel takes there, each
+    plan's output held bit for bit to the plain copy; and two yardsticks
+    in the same harness: the stores alone (one PyTorch fill of ``out``,
+    ``store_ms``) and a contiguous copy of as many bytes into ``out`` (one
+    PyTorch ``copy_``, ``copy_ms``: the copy without the gather's index)."""
+    from .ops.gather_rows import CHUNKS, KINDS, device_plan, launch
+    src, g = case['args']
+    out = torch.empty((*g.shape, src.shape[1]), dtype=src.dtype,
+                      device=src.device)
+    want = case['plain']()
+    row = {}
+    for kind in KINDS:
+        for threads in (128, 256):
+            for chunks in CHUNKS:
+                try:
+                    p = device_plan(src, g, out, kind, chunks, threads)
+                except ValueError:      # no such path for these rows
+                    continue
+
+                def run(p=p):
+                    return launch(src, g, out, p)
+                if not torch.equal(run(), want):
+                    raise AssertionError(f'gather {case["case"]} {p}: not '
+                                         f'the plain copy')
+                row[f'{kind}-T{threads}-C{chunks}'] = dict(
+                    grid=p.grid, ms=device_ms(run))
+    row['store_ms'] = device_ms(out.zero_)
+    flat = torch.empty_like(out).view(-1).copy_(want.view(-1))
+    row['copy_ms'] = device_ms(lambda: out.view(-1).copy_(flat))
+    return row
+
+
 def transpose_case(name: str, g: torch.Tensor, t_idx: torch.Tensor,
                    t_mask: torch.Tensor, div: int) -> dict:
     """``transpose_sum(g, t_idx, t_mask, div)`` as a case of ``measure``:
@@ -963,10 +1101,14 @@ def main(argv=None) -> List[dict]:
     ap.add_argument('--transpose', action='store_true',
                     help='time transpose_sum at its cases instead')
     ap.add_argument('--sweep', action='store_true',
-                    help='with --transpose, also time each forced plan')
+                    help='with --transpose or --gather, also time each '
+                         'forced plan')
     ap.add_argument('--hier', action='store_true',
                     help='time nei_sum and gather_rows at the hier '
                          'family\'s call sites instead')
+    ap.add_argument('--gather', action='store_true',
+                    help='time gather_rows at each of its call sites '
+                         'instead')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('kernel_bench needs a CUDA device')
@@ -974,11 +1116,7 @@ def main(argv=None) -> List[dict]:
     print(smi, flush=True)
     rows = []
     if args.hier:
-        from .bridge import load_model
-        from .profile_serve import HIER_CKPT, HIER_VOCAB
-        model, vocab = load_model(HIER_CKPT, HIER_VOCAB, device='cuda')
-        hrows = prune_to_vocab(read_csv_data(DATA), vocab,
-                               verbose=False)[:N_MOLS]
+        model, vocab, hrows = hier_serve('cuda')
         hbatch = to_model_batch(tensorize(hrows, vocab, common_atom_vocab),
                                 vocab.mask, pad=False)
         from .models.api import encode
@@ -991,6 +1129,15 @@ def main(argv=None) -> List[dict]:
         for row in measure(cases, floor_ms()):
             row['device'] = smi
             print(f'{row["kernel"]} ' + json.dumps(row), flush=True)
+            rows.append(row)
+    elif args.gather:
+        floor = floor_ms()
+        cases = gather_cases('cuda')
+        for case, row in zip(cases, measure(cases, floor)):
+            row.update(device=smi, plan=gather_plan(*case['args']))
+            if args.sweep:
+                row['plans'] = sweep_gather(case)
+            print('gather_rows ' + json.dumps(row), flush=True)
             rows.append(row)
     elif args.transpose:
         floor = floor_ms()

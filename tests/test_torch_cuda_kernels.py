@@ -21,12 +21,17 @@ import dataclasses
 import pytest
 import torch
 
-from ggpm_tpu_torch.kernel_bench import (T_SHAPES, in_order_nei_sum,
+from ggpm_tpu_torch.kernel_bench import (GATHER_EDGES, T_SHAPES,
+                                         gather_edge_inputs, in_order_nei_sum,
                                          in_order_transpose, train_batch,
                                          train_cases)
 from ggpm_tpu_torch.kernel_bench import transpose_inputs as _transpose_inputs
 from ggpm_tpu_torch.ops import graph_ops
+from ggpm_tpu_torch.ops.gather_rows import CHUNKS as K3_CHUNKS
+from ggpm_tpu_torch.ops.gather_rows import KINDS as K3_KINDS
+from ggpm_tpu_torch.ops.gather_rows import device_plan as device_plan_k3
 from ggpm_tpu_torch.ops.gather_rows import gather_nd_t, gather_rows
+from ggpm_tpu_torch.ops.gather_rows import launch as launch_k3
 from ggpm_tpu_torch.ops.nei_sum import (KINDS, MAX_CHUNKS, device_plan,
                                         device_plan_t, launch,
                                         launch_transpose, nei_sum, nei_sum_t,
@@ -176,21 +181,80 @@ def test_transpose_kernel_takes_any_mask(cuda, shape):
         graph_ops.transpose_sum(g, t_idx, weights, div), rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize('shape', [(768, 750, 768, 6), (1577, 750, 1577, 5),
-                                   (300, 250, 853, 6), (301, 251, 77, 3),
-                                   (64, 1, 10, 2), (5, 750, 0, 6)], ids=str)
+@pytest.mark.parametrize('shape', [
+    ('float32', 750, 0, 768, 6), ('float32', 750, 0, 1577, 5),
+    ('float32', 250, 0, 853, 6), ('float32', 251, 0, 77, 3),
+    ('float32', 1, 0, 10, 2), ('float32', 750, 0, 0, 6),
+    *GATHER_EDGES], ids=str)
 def test_gather_rows_kernel_is_a_copy(cuda, shape):
-    m, w, n, a = shape
-    gen = torch.Generator(device=cuda).manual_seed(2)
-    src = torch.rand((m, w), generator=gen, device=cuda)
-    graph = torch.randint(0, m, (n, a), generator=gen, device=cuda,
-                          dtype=torch.int32)
-    before = gather_rows.launches
+    """(dtype, width, src's offset in bytes past a 16-byte boundary, N, A):
+    the depth loops' shapes, and every edge case of
+    ``kernel_bench.GATHER_EDGES`` (each of the kernel's paths, every base
+    offset the element size allows, one entry, a ragged count, several
+    waves; row 0 and the last row read, no entry zero): bit for bit the
+    plain copy, the wrapper's launches and the kernel's own device count
+    each up by one."""
+    from ggpm_tpu_torch.ops import device_launches
+    src, graph = gather_edge_inputs(*shape, device=cuda)
+    n, a = graph.shape
+    before = (gather_rows.launches, device_launches()['gather_rows'])
     out = gather_rows(src, graph)
     torch.cuda.synchronize()
-    assert gather_rows.launches == before + (n > 0)
-    assert out.shape == (n, a, w)
+    assert (gather_rows.launches, device_launches()['gather_rows']) == \
+        tuple(b + (n > 0) for b in before)
+    assert out.shape == (n, a, src.shape[1])
     assert torch.equal(out, src[graph.long()])
+
+
+@pytest.mark.parametrize('edge', [
+    ('float32', 250, 4, 143, 7), ('bfloat16', 750, 8, 143, 7),
+    ('bfloat16', 251, 2, 143, 7), ('float32', 500, 0, 143, 7),
+    ('bfloat16', 500, 4, 1, 1)], ids=str)
+def test_gather_rows_every_plan_is_a_copy(cuda, edge):
+    """Each path, chunks a thread and threads a block that the kernel takes
+    at an edge case, forced (``rows`` in one pass or several): bit for bit
+    the plain copy, one launch each; ``rows`` runs at every case,
+    ``blocks`` wherever the rows are a multiple of 4 bytes from a 4-byte
+    aligned base."""
+    src, graph = gather_edge_inputs(*edge, device=cuda)
+    out = torch.empty((*graph.shape, src.shape[1]), dtype=src.dtype,
+                      device=cuda)
+    want = src[graph.long()]
+    kinds = set()
+    for kind in K3_KINDS:
+        for chunks in K3_CHUNKS:
+            for threads in (32, 128, 256):
+                try:
+                    p = device_plan_k3(src, graph, out, kind, chunks, threads)
+                except ValueError:      # a plan the kernel does not take
+                    continue
+                out.zero_()
+                before = gather_rows.launches
+                launch_k3(src, graph, out, p)
+                torch.cuda.synchronize()
+                assert gather_rows.launches == before + 1
+                assert torch.equal(out, want), p
+                kinds.add(kind)
+    _, width, offset = edge[:3]
+    wide = width * src.element_size() % 4 == 0 and offset % 4 == 0
+    assert kinds == ({'blocks', 'rows'} if wide else {'rows'})
+
+
+def test_gather_rows_refuses_a_plan_it_cannot_take(cuda):
+    """A wide path forced on rows it does not fit raises in the plan; a
+    plan the kernel cannot take (an odd row on a wide path, a grid short
+    of the stream) raises at the launch and counts nothing."""
+    src, graph = gather_edge_inputs('bfloat16', 251, 0, 143, 7, device=cuda)
+    out = torch.empty((*graph.shape, 251), dtype=src.dtype, device=cuda)
+    with pytest.raises(ValueError):
+        device_plan_k3(src, graph, out, 'blocks')
+    before = gather_rows.launches
+    p = device_plan_k3(src, graph, out)
+    for bad in (dataclasses.replace(p, kind='blocks'),
+                dataclasses.replace(p, grid=p.grid - 1)):
+        with pytest.raises(RuntimeError):
+            launch_k3(src, graph, out, bad)
+    assert gather_rows.launches == before
 
 
 @pytest.mark.parametrize('op', ['nei_sum_t', 'gather_nd_t'])
