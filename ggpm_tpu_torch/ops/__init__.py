@@ -14,6 +14,11 @@ from .nei_sum import nei_sum, nei_sum_t, transpose_sum
 # bf16 tables in ``launches_bf16`` and ``captured_bf16``:
 # nei_sum.count_launch)
 COUNTED = (nei_sum, transpose_sum, gather_rows)
+# each counted wrapper's kernels by the names of their ``__global__``
+# functions in ``csrc/<wrapper>.cu``, which a device record's name holds
+KERNEL_FUNCTIONS = {'nei_sum': ('nei_sum_kernel',),
+                    'transpose_sum': ('transpose_sum_kernel',),
+                    'gather_rows': ('gather_wide', 'gather_by_row')}
 
 
 def captured_counts():

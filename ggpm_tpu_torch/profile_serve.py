@@ -48,7 +48,8 @@ from .graph.vocab import common_atom_vocab
 from .latent.control import LatentOptimizer
 from .models import decode, inc_graph
 from .models.api import encode
-from .ops import device_launches, gather_rows, nei_sum, transpose_sum
+from .ops import (KERNEL_FUNCTIONS, device_launches, gather_rows, nei_sum,
+                  transpose_sum)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_MOLS = 64      # the request chip_smoke.py sends
@@ -96,11 +97,11 @@ def _device_us(event) -> float:
 
 def kernel_of(key: str):
     """Which of the port's kernels a profiler event of a device kernel is,
-    by the kernel's name in its source (``csrc/<name>.cu``:
-    ``<name>_kernel``); None for any other."""
-    for w in _WRAPPERS:
-        if f'{w.__name__}_kernel' in key:
-            return w.__name__
+    by the names of its ``__global__`` functions in its source
+    (``ops.KERNEL_FUNCTIONS``); None for any other."""
+    for name, functions in KERNEL_FUNCTIONS.items():
+        if any(f in key for f in functions):
+            return name
     return None
 
 

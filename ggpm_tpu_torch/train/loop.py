@@ -40,6 +40,7 @@ from ..data.batching import (compact_plan_dict, hier_train_tables,
 from ..ops import add_replay, capture_record, captured_counts
 from ..parallel import mesh as pmesh
 from . import checkpoint as ckpt
+from . import profiling
 from .optim import Adam, MultiAdam
 
 
@@ -216,7 +217,19 @@ class Trainer:
     and the noise (``eps``, and ``clip_eps`` for a model that takes it) is
     drawn from ``gen`` before the model runs.  So the same step can be
     captured once and replayed (``scan_steps``); ``graphs`` keeps the
-    captures, one per device-batch signature.
+    captures, one per device-batch signature, and ``step_counts`` counts
+    the steps by kind (``eager``, ``warm_up``, ``replay``) and the
+    ``captures``.
+
+    The epoch's layers are spans of ``profiling.recording`` while one is
+    on: ``epoch``, ``host_batch``, ``tables`` and ``upload`` (inside
+    ``device_batch``), ``flush.eager`` (a flush of one, ``train_step``)
+    and ``flush.graphs`` (``scan_steps``), inside them ``warm_up``,
+    ``capture`` and ``replay``, and ``boundary`` (a print boundary's host
+    reads); each of a batch's spans carries its (epoch, index in the
+    epoch).  Its counters: the step counts above, the scan's executed
+    cells (``plan['active']``'s T × lanes as ``device_batch`` uploads it,
+    ``scan.cells``) and active ones (``scan.active``), and ``mols``.
 
     With ``mesh`` (``parallel.mesh.Mesh``) the trainer is one rank of a
     data-parallel run (JAX's ``Trainer(mesh=...)``): each step takes a
@@ -281,6 +294,7 @@ class Trainer:
                                      device=self.device)
         self._step_dev_at = 0           # the total_step it holds
         self.graphs: Dict[Tuple, StepGraph] = {}
+        self.step_counts = dict(eager=0, warm_up=0, replay=0, captures=0)
         self._layout: Optional[Tuple] = None
         self._stream = None
 
@@ -290,19 +304,27 @@ class Trainer:
         the JAX ``Trainer`` uploads: for the motif family its plan
         lane-packed (``compact_plan_dict``); the hier family's stays
         unpacked (its scan is not lane-agnostic)."""
-        if not isinstance(mb, Mapping):
-            mb = to_model_batch(mb, self.vocab_mask, pad=False)
-        if not self.is_hier and 'mol_lane' not in mb['plan']:
-            mb = dict(mb, plan=compact_plan_dict(
-                {k: np.asarray(v) for k, v in mb['plan'].items()}))
-        return mb
+        with profiling.named_scope('host_batch'):
+            if not isinstance(mb, Mapping):
+                mb = to_model_batch(mb, self.vocab_mask, pad=False)
+            if not self.is_hier and 'mol_lane' not in mb['plan']:
+                mb = dict(mb, plan=compact_plan_dict(
+                    {k: np.asarray(v) for k, v in mb['plan'].items()}))
+            return mb
 
     def device_batch(self, host: Mapping) -> Dict[str, Any]:
         """``host_batch``'s dict with the training tables
         (``train_tables``, ``hier_train_tables`` for the hier family), on
         the device."""
-        tables = hier_train_tables if self.is_hier else train_tables
-        return to_device(tables(host), self.device, self._mask_dev)
+        with profiling.named_scope('tables'):
+            host = (hier_train_tables if self.is_hier else train_tables)(host)
+        rec = profiling.current()
+        if rec is not None:
+            active = np.asarray(host['plan']['active'])
+            rec.counters['scan.cells'] += active.size
+            rec.counters['scan.active'] += int(np.count_nonzero(active))
+        with profiling.named_scope('upload'):
+            return to_device(host, self.device, self._mask_dev)
 
     # -- the step on the device ---------------------------------------------
     def _sync_step(self) -> None:
@@ -422,6 +444,7 @@ class Trainer:
         out = self._body(batch, drawn if eps is None else eps, clip_eps,
                          beta)
         self._advance()
+        self._count('eager')
         return out
 
     def scan_steps(self, batches: Sequence[Dict[str, Any]],
@@ -458,11 +481,16 @@ class Trainer:
                    self.perturb_z)
             g = self.graphs.get(key)
             if g is None:
-                rows.append(self._warm_up(db))
-                self.graphs[key] = StepGraph(self, db, self._stream)
+                with profiling.named_scope('warm_up', db):
+                    rows.append(self._warm_up(db))
+                with profiling.named_scope('capture', db):
+                    self.graphs[key] = StepGraph(self, db, self._stream)
+                self._count('captures')
             else:
-                rows.append(g.run(self, db))
-                self._advance()
+                with profiling.named_scope('replay', db):
+                    rows.append(g.run(self, db))
+                    self._advance()
+                self._count('replay')
         return self._unpack(torch.stack(rows))
 
     def graphs_by_default(self) -> bool:
@@ -509,14 +537,25 @@ class Trainer:
         cur.wait_stream(self._stream)
         row.record_stream(cur)
         self._advance()
+        self._count('warm_up')
         return row
+
+    def _count(self, kind: str) -> None:
+        """One more of ``step_counts[kind]``, and of the recording's
+        counter ``kind`` while one is on."""
+        self.step_counts[kind] += 1
+        profiling.count(kind)
 
     def graph_stats(self) -> Dict[str, Any]:
         """The captured step graphs: how many, the seconds their captures
-        took, and the memory their pools reserved."""
+        took, and the memory their pools reserved; and the steps taken by
+        kind (``step_kinds``: ``eager``, ``warm_up``, ``replay``) and the
+        ``captures``."""
+        counts = dict(self.step_counts)
         return dict(signatures=len(self.graphs),
                     capture_s=sum(g.capture_s for g in self.graphs.values()),
-                    pool_bytes=sum(g.pool_bytes for g in self.graphs.values()))
+                    pool_bytes=sum(g.pool_bytes for g in self.graphs.values()),
+                    captures=counts.pop('captures'), step_kinds=counts)
 
     def train_epoch(self, data: Iterable, epoch: int = 0,
                     log: Callable = print, scan_chunk: int = 8,
@@ -557,10 +596,14 @@ class Trainer:
                 db_list = [self.device_batch(pmesh.stack_batches(
                     group, self.mesh, self.n_shards)) for group in groups]
             if len(db_list) == 1:
-                metrics, aux = self.train_step(db_list[0])
+                with profiling.named_scope('flush.eager', db_list[0]):
+                    metrics, aux = self.train_step(db_list[0])
             else:
-                metrics, aux = self.scan_steps(db_list, graph=graph)
-            self.mols_seen += sum(len(h['plan']['root_clab']) for h in hosts)
+                with profiling.named_scope('flush.graphs', db_list[0]):
+                    metrics, aux = self.scan_steps(db_list, graph=graph)
+            mols = sum(len(h['plan']['root_clab']) for h in hosts)
+            self.mols_seen += mols
+            profiling.count('mols', mols)
             acc.add(metrics)
             clipped_flags.append(aux.get('clipped', False))
         def boundary() -> bool:
@@ -568,18 +611,20 @@ class Trainer:
             if self.total_step >= next_print:
                 next_print = (self.total_step // self.print_iter + 1) \
                     * self.print_iter
-                self.n_clipped += count_clipped(clipped_flags)
-                clipped_flags.clear()
-                if self.n_clipped >= self.clip_break_count:
-                    log(f'[{self.total_step}] negative-loss clip count '
-                        f'reached {self.n_clipped}; aborting run')
-                    return True
-                m = acc.mean()
-                mps = (self.mols_seen - mols0) / max(time.time() - t0, 1e-9)
-                log(f'[{self.total_step}] Beta: {self.beta:.3f}, '
-                    f'mols/s: {mps:.1f}, '
-                    + ', '.join(f'{k}: {v:.3f}' for k, v in sorted(m.items())))
-                acc.reset()
+                with profiling.named_scope('boundary'):
+                    self.n_clipped += count_clipped(clipped_flags)
+                    clipped_flags.clear()
+                    if self.n_clipped >= self.clip_break_count:
+                        log(f'[{self.total_step}] negative-loss clip count '
+                            f'reached {self.n_clipped}; aborting run')
+                        return True
+                    m = acc.mean()
+                    mps = (self.mols_seen - mols0) / max(time.time() - t0,
+                                                         1e-9)
+                    log(f'[{self.total_step}] Beta: {self.beta:.3f}, '
+                        f'mols/s: {mps:.1f}, ' + ', '.join(
+                            f'{k}: {v:.3f}' for k, v in sorted(m.items())))
+                    acc.reset()
             if next_save is not None and self.total_step >= next_save:
                 n_iter = self.total_step // self.save_iter - 1
                 next_save = (self.total_step // self.save_iter + 1) \
@@ -592,17 +637,23 @@ class Trainer:
 
         def arrivals():
             # on a mesh only this rank's batches go to the device (run)
-            for mb in data:
+            for i, mb in enumerate(data):
+                profiling.at_step(epoch, i)
                 host = self.host_batch(mb)
-                yield host, (None if self.mesh is not None
-                             else self.device_batch(host))
+                db = None if self.mesh is not None else self.device_batch(host)
+                profiling.tag(db)
+                yield host, db
 
-        for flush in flushes(arrivals(), lambda x: signature(x[0]),
-                             scan_chunk):
-            run(flush)
-            if boundary():
-                return True
-        self.n_clipped += count_clipped(clipped_flags)
+        profiling.at_step(epoch)
+        with profiling.named_scope('epoch'):
+            for flush in flushes(arrivals(), lambda x: signature(x[0]),
+                                 scan_chunk):
+                run(flush)
+                if boundary():
+                    return True
+            profiling.at_step(epoch)
+            with profiling.named_scope('boundary'):
+                self.n_clipped += count_clipped(clipped_flags)
         return self.n_clipped >= self.clip_break_count
 
     @torch.no_grad()

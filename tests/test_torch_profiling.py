@@ -73,5 +73,3 @@ def test_nan_checks_and_trace_server():
     finally:
         profiling.enable_nan_checks(False)
     assert not torch.is_anomaly_enabled()
-    with pytest.raises(NotImplementedError, match='trace'):
-        profiling.trace_server(9999)

@@ -4,7 +4,8 @@ the ``nei_sum``, ``transpose_sum`` and ``gather_rows`` kernels inside)
 against the same steps run eagerly, bit for bit, over the 17 HOPV batches
 in the JAX package's order, for ``prop`` and the prop-opt fine-tuning
 step; the kernels' launches in a replayed step, by the wrappers' counts
-and by the profiler's device events; dropout's masks under replay; a
+and by the profiler's device events; the recorder's step counts and
+spans over two epochs; dropout's masks under replay; a
 capture that fails; and the training CLI on the card.  Needs an NVIDIA
 GPU and ``nvcc``; on the card, from the root of the repo:
 
@@ -24,7 +25,7 @@ from ggpm_tpu_torch import profile_train
 from ggpm_tpu_torch.bridge import load_flax_params, prop_tree, read_checkpoint
 from ggpm_tpu_torch.cli import vae_train
 from ggpm_tpu_torch.models.vae import ModelConfig, PropertyVAE
-from ggpm_tpu_torch.train import loop
+from ggpm_tpu_torch.train import loop, profiling
 from ggpm_tpu_torch.train.loop import Trainer
 from ggpm_tpu_torch.train.optim import make_optimizer
 
@@ -119,6 +120,49 @@ def test_replayed_steps_launch_each_kernel(card):
     bad, lost = profile_train.check_replay_windows(
         windows, {k: float(v) for k, v in LAUNCHES.items()})
     assert len(windows) == 16 and not bad, (bad, lost)
+
+
+def test_recorded_epochs_count_steps_by_kind(card):
+    """Two epochs through graphs, each with the recorder on: the first
+    warms up and captures each signature of a flush of two or more and
+    replays its other steps; the second replays every step of those
+    flushes and captures none; both run each flush of one eagerly.  The
+    recording's counters and spans, and ``graph_stats``, equal that count
+    made from the batches' flushes, and each step's span carries its
+    batch's (epoch, index)."""
+    tr = _trainer(card, 'prop')
+    batches = card['batches']
+    hosts = [tr.host_batch(mb) for mb in batches]
+    groups = list(loop.flushes(hosts, loop.signature))
+    sizes = [len(g) for g in groups]
+    graphs = len({loop.signature(g[0]) for g in groups if len(g) > 1})
+    many = sum(n for n in sizes if n > 1)
+    want = [dict(eager=sizes.count(1), warm_up=graphs,
+                 replay=many - graphs, captures=graphs),
+            dict(eager=sizes.count(1), warm_up=0, replay=many, captures=0)]
+    orders = [list(range(len(batches))),
+              list(reversed(range(len(batches))))]
+    for e, (order, w) in enumerate(zip(orders, want)):
+        with profiling.recording() as rec:
+            tr.train_epoch([batches[i] for i in order], epoch=e,
+                           log=lambda *_: None)
+        torch.cuda.synchronize()
+        assert {k: rec.counters.get(k, 0) for k in w} == w, e
+        assert rec.counters['mols'] == profile_train.BATCH_SIZE * len(order)
+        calls = rec.calls()
+        assert (calls.get('warm_up', 0), calls.get('capture', 0),
+                calls.get('replay', 0), calls['flush.eager']) == \
+            (w['warm_up'], w['captures'], w['replay'], w['eager']), e
+        stepped = sorted(s.step for s in rec.spans
+                         if s.name in ('warm_up', 'replay', 'flush.eager'))
+        assert stepped == [(e, i) for i in range(len(batches))], e
+        for s in rec.spans:
+            if s.name in ('warm_up', 'capture', 'replay'):
+                assert rec.spans[s.parent].name == 'flush.graphs'
+    stats = tr.graph_stats()
+    assert stats['captures'] == stats['signatures'] == graphs
+    assert stats['step_kinds'] == {k: want[0][k] + want[1][k]
+                                   for k in ('eager', 'warm_up', 'replay')}
 
 
 def test_dropout_masks_change_between_replays(card):
