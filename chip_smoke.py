@@ -93,9 +93,10 @@ script exits non-zero:
              fresh trainers from the same weights each train two epochs
              in the JAX order, one eagerly and one through
              ``Trainer.scan_steps``'s CUDA graphs (one captured per batch
-             signature, each flush of two or more replayed): every step's
-             metrics and the parameters, Adam moments and counts after
-             must be equal bit for bit, and each replayed step must launch
+             signature, every flush replayed, a flush of one too):
+             every step's metrics and the parameters, Adam moments and
+             counts after must be equal bit for bit, and each replayed
+             step must launch
              ``nei_sum`` / ``transpose_sum`` / ``gather_rows`` 3 / 22 / 20
              times by the wrappers' counts and by the profiler's device
              events (``train graph vs eager``: signatures captured, capture
@@ -555,9 +556,7 @@ TURNS = (False, True)
 # what the train and finetune phases print of each turn, eager and graph
 TURN_KEYS = ('train_mols_per_s', 'train_mols_per_s_with_prep', 'step_wall_ms',
              'host_dispatch_ms_per_step', 'device_busy_ms_per_step',
-             'device_idle_share', 'replayed_mols_per_s',
-             'replayed_step_wall_ms', 'replayed_device_busy_ms_per_step',
-             'replayed_device_idle_share')
+             'device_idle_share')
 
 
 def nei_sum_kinds(h, g):

@@ -11,8 +11,8 @@ anneal 0.9 per epoch of 17 steps) from the ``vae/`` weights of the trained
 HOPV checkpoint, on the 17 full batches of 20 of ``data/hopv15.csv``
 (padded to their bucket shapes, lane-packed, as ``cli/vae_train.py`` and
 the JAX ``Trainer`` make them).  It profiles an epoch of eager steps, then
-one through ``Trainer.scan_steps``'s CUDA graphs (each flush of two or
-more replayed, a flush of one eager, as the JAX ``Trainer`` steps them).
+one through ``Trainer.scan_steps``'s CUDA graphs (every flush replayed, a
+flush of one too, as ``Trainer.train_epoch`` runs them on the card).
 After one untimed epoch each reports, on the card: train mols/s over one
 epoch of steps on batches already on the device (``bench.py``'s
 definition), and through ``Trainer.train_epoch`` with the host's batch
@@ -23,10 +23,10 @@ wall time is printed beside them; the profiler slows the host more than
 the device, so the share may read higher than an unprofiled epoch's);
 launches per step, in all and per kernel (B1 ``nei_sum``, its transpose
 ``transpose_sum``, the row gather ``gather_rows``); through graphs, the
-graphs captured, their capture seconds and pools, and the replayed steps
-alone, and the peak memory.  Prints one JSON object (and writes it to
-``--out``).  Needs a CUDA device; it has no CPU mode.  ``hier_trainer``
-gives the hier family's step, which chip_smoke.py profiles alike.
+graphs captured, their capture seconds and pools, and the peak memory.
+Prints one JSON object (and writes it to ``--out``).  Needs a CUDA
+device; it has no CPU mode.  ``hier_trainer`` gives the hier family's
+step, which chip_smoke.py profiles alike.
 """
 
 from __future__ import annotations
@@ -802,42 +802,45 @@ def flush_groups(trainer: Trainer, batches: List[MolGraphBatch]
 def run_epoch(trainer: Trainer, groups: List[List[dict]], graph: bool,
               rows: Optional[list] = None) -> List[float]:
     """One epoch over device batches in flush ``groups`` through
-    ``scan_steps``: a flush of two or more through CUDA graphs with
-    ``graph``, a flush of one eagerly (``train_step``).  Returns each
-    step's host seconds (a flush's divided among its steps); with
-    ``rows``, appends each step's metrics, breaker flag and group norms
-    (device values)."""
+    ``scan_steps``, every flush through CUDA graphs with ``graph`` (a
+    flush of one too, as ``Trainer.train_epoch`` runs it on the card),
+    else eagerly.  Returns each step's host seconds (a flush's divided
+    among its steps); with ``rows``, appends each step's metrics, breaker
+    flag and group norms (device values)."""
     out = []
     for group in groups:
         t0 = time.perf_counter()
-        metrics, aux = trainer.scan_steps(group,
-                                          graph=graph and len(group) > 1)
+        metrics, aux = trainer.scan_steps(group, graph=graph)
         dt = time.perf_counter() - t0
         out += [dt / len(group)] * len(group)
         if rows is not None:
-            for i in range(len(group)):
-                rows.append(dict(
-                    {k: v[i] for k, v in metrics.items()},
-                    **({'clipped': aux['clipped'][i]}
-                       if isinstance(aux['clipped'], torch.Tensor) else {}),
-                    **{f'group {g}': v[i]
-                       for g, v in aux.get('group_norms', {}).items()}))
+            rows += step_rows(metrics, aux)
     return out
+
+
+def step_rows(metrics: Dict[str, torch.Tensor], aux: dict) -> List[dict]:
+    """Each step's metrics, breaker flag and group norms (device values)
+    of a ``scan_steps`` result."""
+    return [dict({k: v[i] for k, v in metrics.items()},
+                 **({'clipped': aux['clipped'][i]}
+                    if isinstance(aux['clipped'], torch.Tensor) else {}),
+                 **{f'group {g}': v[i]
+                    for g, v in aux.get('group_norms', {}).items()})
+            for i in range(len(next(iter(metrics.values()))))]
 
 
 def replay_windows(trainer: Trainer, groups: List[List[dict]]
                    ) -> List[dict]:
-    """Each step of the flushes of two or more of ``groups`` (their graphs
-    already captured) replayed in a profiler window of its own: the
-    wrappers' launches (``launches``, and those on bf16 tables,
-    ``launches_bf16``), the launches that ran by the kernels' own device
-    counts (``ran``), the profiler's device records of each kernel
-    (``device``, and by the kernel's full name, whose template names a
-    bf16 sum's, ``device_by_name``), the window's device records
-    (``records``), and the replay's wall ms under the profiler and device
-    busy ms."""
+    """Each step of ``groups`` (their graphs already captured) replayed
+    in a profiler window of its own: the wrappers' launches
+    (``launches``, and those on bf16 tables, ``launches_bf16``), the
+    launches that ran by the kernels' own device counts (``ran``), the
+    profiler's device records of each kernel (``device``, and by the
+    kernel's full name, whose template names a bf16 sum's,
+    ``device_by_name``), the window's device records (``records``), and
+    the replay's wall ms under the profiler and device busy ms."""
     out = []
-    for db in (db for g in groups if len(g) > 1 for db in g):
+    for db in (db for g in groups for db in g):
         before = _counts()
         before_bf16 = {k: w.launches_bf16 for k, w in KERNELS.items()}
         wall, ran = [], {}
@@ -890,12 +893,12 @@ def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch],
                   graph: bool = False, full: bool = True) -> dict:
     """Train mols/s and where a step's time goes, on the card, after one
     untimed epoch over ``batches``, with the steps eager or, with
-    ``graph``, every flush of two or more replayed from the trainer's
-    captured step graphs (``Trainer.scan_steps``).  Without ``full`` it
-    runs only the epochs the step's own figures need: no untimed epoch
-    for eager steps (the caller has warmed the card), no epoch through
-    ``train_epoch`` with the host's batch preparation, no replayed steps
-    alone; for the hier step, whose eager epoch takes half a minute."""
+    ``graph``, every step replayed from the trainer's captured step graphs
+    (``Trainer.scan_steps``).  Without ``full`` it runs only the epochs the
+    step's own figures need: no untimed epoch for eager steps (the caller
+    has warmed the card), no epoch through ``train_epoch`` with the host's
+    batch preparation; for the hier step, whose eager epoch takes half a
+    minute."""
     n_mols = BATCH_SIZE * len(batches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -961,25 +964,6 @@ def profile_epoch(trainer: Trainer, batches: List[MolGraphBatch],
         out['train_mols_per_s_with_prep'] = n_mols / wall_prep
     if graph:
         out.update(trainer.graph_stats())
-    if graph and full:
-        # the replayed steps alone (the flushes of two or more), the
-        # window's busy time and wall from the same profiled run
-        replayed = [g for g in groups if len(g) > 1]
-        n = sum(len(g) for g in replayed)
-        walls.clear()
-
-        def timed_replays():
-            t0 = time.perf_counter()
-            run_epoch(trainer, replayed, True)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        timed_replays()
-        busy_r, _ = profiled(timed_replays)
-        out.update(replayed_steps=n,
-                   replayed_mols_per_s=BATCH_SIZE * n / walls[0],
-                   replayed_step_wall_ms=1e3 * walls[0] / n,
-                   replayed_device_busy_ms_per_step=busy_r / 1e3 / n,
-                   replayed_device_idle_share=1.0 - busy_r / 1e6 / walls[1])
     return out
 
 

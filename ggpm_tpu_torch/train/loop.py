@@ -9,8 +9,10 @@ epoch/``save_iter``).  Metrics stay on the device until a print boundary
 reads them.  Where the JAX package runs K same-shape steps as one
 ``lax.scan`` call (``make_scan_train_step``), the port on the card replays
 one captured CUDA graph per step (``StepGraph``: forward, backward and the
-optimizer's update), captured once per device-batch signature; on the CPU
-``scan_steps`` runs K eager steps, the plain version.
+optimizer's update), captured once per device-batch signature, for a flush
+of one batch as for a flush of K, where the JAX package runs a flush of one
+as its ``train_step``; on the CPU ``scan_steps`` runs K eager steps, the
+plain version, and a flush of one is a ``train_step``.
 
 On a ``parallel.mesh.Mesh`` the ``Trainer`` is one rank of a
 data-parallel (or dp×tp) run: its step is the same, with the gradient,
@@ -223,8 +225,9 @@ class Trainer:
 
     The epoch's layers are spans of ``profiling.recording`` while one is
     on: ``epoch``, ``host_batch``, ``tables`` and ``upload`` (inside
-    ``device_batch``), ``flush.eager`` (a flush of one, ``train_step``)
-    and ``flush.graphs`` (``scan_steps``), inside them ``warm_up``,
+    ``device_batch``), ``flush.eager`` (a flush of one run by
+    ``train_step``, where the steps do not run through graphs) and
+    ``flush.graphs`` (``scan_steps``), inside them ``warm_up``,
     ``capture`` and ``replay``, and ``boundary`` (a print boundary's host
     reads); each of a batch's spans carries its (epoch, index in the
     epoch).  Its counters: the step counts above, the scan's executed
@@ -561,12 +564,16 @@ class Trainer:
                     log: Callable = print, scan_chunk: int = 8,
                     graph: Optional[bool] = None) -> bool:
         """One epoch.  Batches are buffered per shape signature and run
-        ``scan_chunk`` at a time, a flush of two or more through
-        ``scan_steps`` (CUDA graphs on the card), of one through
-        ``train_step``; the buckets left at the end run in the order they
-        were opened (``graph`` as ``scan_steps`` takes it).  This is the
-        order in which the JAX ``Trainer`` takes its steps
-        (loop.py:474-484), so both follow the same parameter trajectory.
+        ``scan_chunk`` at a time, each flush through ``scan_steps`` where
+        its steps run through CUDA graphs (``graph``, resolved as
+        ``scan_steps`` resolves it: on the card outside a mesh and on a
+        1-D NCCL mesh), a flush of one batch too, which is then replayed
+        from its signature's graph like any other step; elsewhere a flush
+        of two or more through ``scan_steps`` and of one through
+        ``train_step``.  The buckets left at the end run in the order they
+        were opened.  This is the order in which the JAX ``Trainer`` takes
+        its steps (loop.py:474-484), so both follow the same parameter
+        trajectory (a replay is the eager step, bit for bit).
         On a mesh a flush is split into groups of ``n_shards``, the short
         last one filled by cycling (loop.py:406-425), and each group is one
         step on this rank's batch of it; only those batches go to the
@@ -582,6 +589,7 @@ class Trainer:
         next_save = None
         if self.save_iter > 0:
             next_save = (self.total_step // self.save_iter + 1) * self.save_iter
+        graphs = self.graphs_by_default() if graph is None else graph
 
         def run(flush):
             if self.mesh is None:
@@ -595,7 +603,7 @@ class Trainer:
                 hosts = [host for group in groups for host in group]
                 db_list = [self.device_batch(pmesh.stack_batches(
                     group, self.mesh, self.n_shards)) for group in groups]
-            if len(db_list) == 1:
+            if len(db_list) == 1 and not graphs:
                 with profiling.named_scope('flush.eager', db_list[0]):
                     metrics, aux = self.train_step(db_list[0])
             else:

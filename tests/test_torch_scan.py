@@ -313,6 +313,39 @@ def test_train_epoch_scans_each_flush(hopv, monkeypatch):
     assert torch.equal(_bits(tr.opt_state.flat), _bits(ref.opt_state.flat))
 
 
+@pytest.mark.parametrize('graph,calls_want', [(None, [2, 1]), (False, [2])],
+                         ids=['graphs', 'graph-false'])
+def test_train_epoch_replays_a_flush_of_one_with_graphs(hopv, monkeypatch,
+                                                        graph, calls_want):
+    """Where the trainer's steps run through graphs
+    (``graphs_by_default``, here patched on, as on the card), ``train_epoch``
+    runs a flush of one batch through ``scan_steps`` too, whose graph it
+    then replays (here ``scan_steps`` runs without graphs, the CPU's plain
+    version of the same step); with ``graph=False`` given, a flush of one
+    is still a ``train_step``.  The parameter trajectory is ``train_step``'s
+    in the JAX order, bit for bit, either way."""
+    tr = _trainer(hopv, 'prop')
+    monkeypatch.setattr(tr, 'graphs_by_default', lambda: True)
+    calls = []
+    scan = tr.scan_steps
+    monkeypatch.setattr(tr, 'scan_steps', lambda dbs, **kw: calls.append(
+        len(dbs)) or scan(dbs, graph=False))
+    i0 = hopv['idx'][0]
+    other = next(i for i in range(len(hopv['mbs']))
+                 if i not in hopv['idx'])
+    order = [i0, other, hopv['idx'][1]]
+    assert not tr.train_epoch([hopv['mbs'][i] for i in order], scan_chunk=2,
+                              log=lambda *_: None, graph=graph)
+    assert calls == calls_want
+    assert tr.total_step == STEP0 + 3 and tr.opt_state.count == 3
+    ref = _trainer(hopv, 'prop')
+    for i in (i0, hopv['idx'][1], other):
+        ref.train_step(ref.device_batch(ref.host_batch(hopv['mbs'][i])))
+    assert torch.equal(_bits(tr.opt_state.flat), _bits(ref.opt_state.flat))
+    assert torch.equal(_bits(tr.opt_state.mu), _bits(ref.opt_state.mu))
+    assert torch.equal(tr.gen.get_state(), ref.gen.get_state())
+
+
 def test_metric_rows_and_flags_count_every_step():
     """``MetricAccumulator`` and ``count_clipped`` take a step's scalars
     and a scan's [K] rows alike: the mean and the count over every

@@ -3,10 +3,11 @@ captured CUDA graphs (forward, backward and the optimizer's update, with
 the ``nei_sum``, ``transpose_sum`` and ``gather_rows`` kernels inside)
 against the same steps run eagerly, bit for bit, over the 17 HOPV batches
 in the JAX package's order, for ``prop`` and the prop-opt fine-tuning
-step; the kernels' launches in a replayed step, by the wrappers' counts
-and by the profiler's device events; the recorder's step counts and
-spans over two epochs; dropout's masks under replay; a
-capture that fails; and the training CLI on the card.  Needs an NVIDIA
+step, through ``scan_steps`` and through ``Trainer.train_epoch``, whose
+flush of one batch is replayed too; the kernels' launches in a replayed
+step, by the wrappers' counts and by the profiler's device events; the
+recorder's step counts and spans over two epochs; dropout's masks under
+replay; a capture that fails; and the training CLI on the card.  Needs an NVIDIA
 GPU and ``nvcc``; on the card, from the root of the repo:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_scan_cuda.py
@@ -88,10 +89,9 @@ def test_graph_epochs_equal_eager_epochs(card, kind, noise):
             profile_train.run_epoch(tr, groups, graph, rows[graph])
         states[graph] = _state(tr)
         if graph:
-            # a graph per signature of a flush of two or more; a flush of
-            # one is a train_step, as in the JAX Trainer
+            # a graph per signature, that of a flush of one too
             assert len(tr.graphs) == len({loop.signature(g[0])
-                                          for g in groups if len(g) > 1})
+                                          for g in groups})
     assert len(rows[True]) == len(rows[False]) == 34
     for i, (e, g) in enumerate(zip(rows[False], rows[True])):
         assert set(e) == set(g)
@@ -105,41 +105,111 @@ def test_graph_epochs_equal_eager_epochs(card, kind, noise):
                            _bits(states[True][k])), k
 
 
+def _step_rows(tr, graph):
+    """Wrap ``tr``'s steps to record each step's metrics, breaker flag and
+    group norms (device values) in the order the steps run: eagerly each
+    ``train_step`` (which ``scan_steps`` without graphs calls too), through
+    graphs each step of a ``scan_steps`` call.  Returns the list."""
+    rows = []
+    if graph:
+        scan = tr.scan_steps
+
+        def scanned(dbs, **kw):
+            metrics, aux = scan(dbs, **kw)
+            rows.extend(profile_train.step_rows(metrics, aux))
+            return metrics, aux
+        tr.scan_steps = scanned
+    else:
+        step = tr.train_step
+
+        def stepped(db, **kw):
+            metrics, aux = step(db, **kw)
+            norms = getattr(tr.opt_state, 'group_norms', {})
+            rows.append(dict(
+                metrics,
+                **({'clipped': aux['clipped']}
+                   if isinstance(aux['clipped'], torch.Tensor) else {}),
+                **{f'group {g}': v for g, v in norms.items()}))
+            return metrics, aux
+        tr.train_step = stepped
+    return rows
+
+
+@pytest.mark.parametrize('kind,noise', [('prop', False), ('prop-opt', False),
+                                        ('prop-opt', True)],
+                         ids=['prop', 'prop-opt', 'prop-opt-noise'])
+def test_train_epoch_graphs_equal_eager(card, kind, noise):
+    """Three epochs through ``Trainer.train_epoch`` from the same
+    checkpoint, once with ``graph=False`` and once through graphs (the
+    default on the card), each epoch's batch order its own: every step's
+    metrics, breaker flag and group norms, and the parameters, moments,
+    counts and noise generator after, bit for bit.  Through graphs no
+    step is a ``train_step``: the flush of one batch is warmed up and
+    captured in the first epoch and replayed in the others, as every
+    other signature's."""
+    batches = card['batches']
+    n = len(batches)
+    orders = [list(range(n)), list(reversed(range(n))),
+              [(7 * i + 3) % n for i in range(n)]]
+    rows, states, trainers = {}, {}, {}
+    for graph in (False, True):
+        tr = _trainer(card, kind, noise)
+        rows[graph] = _step_rows(tr, graph)
+        for e, order in enumerate(orders):
+            assert not tr.train_epoch([batches[i] for i in order], epoch=e,
+                                      log=lambda *_: None,
+                                      graph=None if graph else False)
+        torch.cuda.synchronize()
+        states[graph], trainers[graph] = _state(tr), tr
+    stats = trainers[True].graph_stats()
+    assert stats['signatures'] == stats['captures'] == 5
+    assert stats['step_kinds'] == dict(eager=0, warm_up=5,
+                                       replay=3 * n - 5)
+    assert trainers[False].graph_stats()['step_kinds'] == dict(
+        eager=3 * n, warm_up=0, replay=0)
+    assert len(rows[True]) == len(rows[False]) == 3 * n
+    for i, (e, g) in enumerate(zip(rows[False], rows[True])):
+        assert set(e) == set(g), i
+        for k in e:
+            assert torch.equal(_bits(e[k]), _bits(g[k])), (i, k)
+    for k in states[False]:
+        assert torch.equal(_bits(states[False][k]),
+                           _bits(states[True][k])), k
+
+
 def test_replayed_steps_launch_each_kernel(card):
     """A replayed step adds 3 / 22 / 20 launches of ``nei_sum`` /
     ``transpose_sum`` / ``gather_rows`` to the wrappers' counts, and as
     many of each run on the card by the kernels' own device counts, one
-    profiler window a step; the profiler's records are at most as many
-    (``profile_train.check_replay_windows``)."""
+    profiler window a step, the flush of one's too; the profiler's records
+    are at most as many (``profile_train.check_replay_windows``)."""
     tr = _trainer(card, 'prop')
     groups = profile_train.flush_groups(tr, card['batches'])
     for g in groups:
-        if len(g) > 1:
-            tr.scan_steps(g)              # captures
+        tr.scan_steps(g)                  # captures
     windows = profile_train.replay_windows(tr, groups)
     bad, lost = profile_train.check_replay_windows(
         windows, {k: float(v) for k, v in LAUNCHES.items()})
-    assert len(windows) == 16 and not bad, (bad, lost)
+    assert len(windows) == 17 and not bad, (bad, lost)
 
 
 def test_recorded_epochs_count_steps_by_kind(card):
     """Two epochs through graphs, each with the recorder on: the first
-    warms up and captures each signature of a flush of two or more and
-    replays its other steps; the second replays every step of those
-    flushes and captures none; both run each flush of one eagerly.  The
-    recording's counters and spans, and ``graph_stats``, equal that count
-    made from the batches' flushes, and each step's span carries its
-    batch's (epoch, index)."""
+    warms up and captures each signature, that of the flush of one batch
+    too, and replays the other steps; the second replays every step and
+    captures none; neither runs a step eagerly.  The recording's counters
+    and spans, and ``graph_stats``, equal that count made from the
+    batches' flushes, and each step's span carries its batch's (epoch,
+    index)."""
     tr = _trainer(card, 'prop')
     batches = card['batches']
     hosts = [tr.host_batch(mb) for mb in batches]
     groups = list(loop.flushes(hosts, loop.signature))
-    sizes = [len(g) for g in groups]
-    graphs = len({loop.signature(g[0]) for g in groups if len(g) > 1})
-    many = sum(n for n in sizes if n > 1)
-    want = [dict(eager=sizes.count(1), warm_up=graphs,
-                 replay=many - graphs, captures=graphs),
-            dict(eager=sizes.count(1), warm_up=0, replay=many, captures=0)]
+    graphs = len({loop.signature(g[0]) for g in groups})
+    assert graphs == 5 and [len(g) for g in groups].count(1) == 1
+    want = [dict(eager=0, warm_up=graphs, replay=len(batches) - graphs,
+                 captures=graphs),
+            dict(eager=0, warm_up=0, replay=len(batches), captures=0)]
     orders = [list(range(len(batches))),
               list(reversed(range(len(batches))))]
     for e, (order, w) in enumerate(zip(orders, want)):
@@ -151,7 +221,7 @@ def test_recorded_epochs_count_steps_by_kind(card):
         assert rec.counters['mols'] == profile_train.BATCH_SIZE * len(order)
         calls = rec.calls()
         assert (calls.get('warm_up', 0), calls.get('capture', 0),
-                calls.get('replay', 0), calls['flush.eager']) == \
+                calls.get('replay', 0), calls.get('flush.eager', 0)) == \
             (w['warm_up'], w['captures'], w['replay'], w['eager']), e
         stepped = sorted(s.step for s in rec.spans
                          if s.name in ('warm_up', 'replay', 'flush.eager'))
@@ -187,10 +257,10 @@ def test_dropout_masks_change_between_replays(card):
 
 
 def test_training_cli_trains_through_graphs(card, tmp_path, monkeypatch):
-    """``cli.vae_train`` on the card runs its flushes of two or more
-    batches as graph replays, with no flag: one epoch of the canonical
-    configuration from scratch over the HOPV CSV, whose flushes of 3, 5,
-    3 and 5 batches have four signatures."""
+    """``cli.vae_train`` on the card runs its flushes as graph replays,
+    with no flag: one epoch of the canonical configuration from scratch
+    over the HOPV CSV, whose flushes of 1, 3, 3, 5 and 5 batches have five
+    signatures, each captured."""
     captured = []
     init = loop.StepGraph.__init__
 
@@ -204,7 +274,7 @@ def test_training_cli_trains_through_graphs(card, tmp_path, monkeypatch):
     model = vae_train.main(['--path-to-config', str(tmp_path / 'cfg.json'),
                             '--model-type', 'prop', '--data-csv',
                             profile_train.DATA])
-    assert len(captured) == 4
+    assert len(captured) == 5
     assert (tmp_path / 'out' / 'model.0').exists()
     assert all(torch.isfinite(p).all() for p in model.parameters())
 
